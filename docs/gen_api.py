@@ -63,7 +63,7 @@ PAGES = {
          "default_experiment_result_function"],
     ),
     "ops": (
-        "TPU kernels (`qiskit_dynamics_tpu.ops`)",
+        "Compute engines (`qiskit_dynamics_tpu.ops`)",
         "qiskit_dynamics_tpu.ops",
         None,
     ),

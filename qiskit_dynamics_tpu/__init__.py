@@ -1,11 +1,11 @@
-"""qiskit_dynamics_tpu: TPU-native time-dependent quantum dynamics.
+"""qiskit_dynamics_tpu: accelerator-native time-dependent quantum dynamics.
 
 A from-scratch JAX/XLA/Pallas framework with the capability set of
 qiskit-dynamics (reference: ``/root/reference/qiskit_dynamics/__init__.py``):
 signals, Hamiltonian/Lindblad models with rotating frames and RWA,
 fixed-step/adaptive/perturbative solvers, a pulse-schedule front end, and a
-backend simulation layer — all designed TPU-first (jit-native hot paths,
-multi-chip sharding via ``parallel``).
+backend simulation layer — all jit-native, with fused sweep engines for
+the GPU and multi-device sharding via ``parallel``.
 """
 import os as _os
 

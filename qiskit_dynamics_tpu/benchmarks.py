@@ -97,16 +97,12 @@ def fused_cr_sweep(
     dt: float = 0.5,
     amp_scale: float = 0.02,
     order: int = 8,
-    tile_b: int = 512,
-    interpret: bool = False,
 ):
-    """CR amplitude sweep through the fused Pallas sweep solver.
+    """CR amplitude sweep through :func:`.solvers.fused_sweep_solve`.
 
-    Builds the frame-basis operator data and Gauss-point signal-coefficient
-    tensor for the (RWA'd) model of ``solver``, then runs
-    :func:`~qiskit_dynamics_tpu.ops.sweep_solver.sweep_expm_magnus2` — the
-    whole multi-step solve for each lane tile executes inside one Pallas
-    kernel. Returns (B, dim) final-state populations, matching
+    The whole fixed-step Magnus-2 sweep of the (RWA'd) model of ``solver``
+    runs as one device program. Returns (B, dim) final-state populations,
+    matching
     ``Solver.solve(..., method='jax_expm', magnus_order=2)`` up to Taylor
     truncation.
     """
@@ -130,8 +126,6 @@ def fused_cr_sweep(
         max_dt=dt,
         y0=y0,
         expm_order=order,
-        tile_b=tile_b,
-        interpret=interpret,
         rwa_signal_map=solver._rwa_signal_map,
     )
     return jnp.abs(yf) ** 2
@@ -139,33 +133,22 @@ def fused_cr_sweep(
 
 def expm_chain(
     generators, dt: float, y0, order: int = 12, squarings: int = 2,
-    engine: str = "xla",
 ):
     """Sustained expm-propagator chain: ``y <- expm(G_t dt) @ y`` over steps.
 
-    North-star metric 2 (BASELINE.md): the single-matrix dim-256 expm time is
-    dispatch-latency bound (~30 ms); production propagation is a CHAIN of
-    steps under one jit, where the MXU stays busy — this helper measures that
-    sustained regime.
+    A single small expm is dispatch-latency bound; production propagation is
+    a CHAIN of steps under one jit (``lax.scan`` over
+    :func:`~qiskit_dynamics_tpu.ops.expm.expm_taylor`) — this helper measures
+    that sustained regime.
 
     Args:
         generators: (T, ..., n, n) per-step (optionally batched) generators.
         dt: step size.
         y0: (..., n, m) states/propagators to which the chain is applied.
-        engine: ``"xla"`` (``lax.scan`` over ``expm_taylor`` — every matmul
-            round-trips HBM) or ``"pallas"`` (fused-VMEM kernel,
-            :func:`.ops.expm_chain_pallas.expm_chain_fused`; identical
-            polynomial, requires (T, b, n, n)/(T, n, n) shapes).
 
     Returns:
         (..., n, m) final states.
     """
-    if engine == "pallas":
-        from .ops.expm_chain_pallas import expm_chain_fused
-
-        return expm_chain_fused(
-            generators, dt, y0, order=order, squarings=squarings
-        )
     from .ops.expm import expm_taylor
 
     def step(y, g):
@@ -276,8 +259,8 @@ def magnus_transmon_solver(
 ):
     """BASELINE config 4, Magnus variant: same transmon as
     :func:`dyson_transmon_solver` stepped with ``MagnusSolver`` (per-step
-    ``expm`` of the Magnus polynomial via the batch-on-lanes Pallas Taylor
-    kernel; unitary per step, so coarser expansion orders hold).
+    ``expm`` of the Magnus polynomial via the batched Taylor ``expm``;
+    unitary per step, so coarser expansion orders hold).
 
     Returns:
         (magnus_solver, nu): the solver and the drive carrier frequency.

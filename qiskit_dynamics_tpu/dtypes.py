@@ -6,7 +6,7 @@ Precision is global-by-default and follows ``jax_enable_x64``:
 
 - x64 enabled (CPU validation runs): complex128 / float64 — matches the
   reference test bar of 1e-8 agreement.
-- x64 disabled (TPU production runs): complex64 / float32, with accuracy-
+- x64 disabled (GPU production runs): complex64 / float32, with accuracy-
   critical reductions carried out in float32 via ``preferred_element_type``.
 """
 from __future__ import annotations
@@ -16,11 +16,11 @@ import jax.numpy as jnp
 
 ArrayLike = jax.typing.ArrayLike
 
-# TPU matmuls default to bf16 inputs (8 mantissa bits); for quantum dynamics
-# that turns near-identity propagator products into ~1e-3/step errors
-# (measured: 0.1 total drift on a 200-step Magnus solve). Force true-f32 MXU
-# passes by default; users can still lower precision per-op via the
-# ``precision=`` argument or ``jax.default_matmul_precision``.
+# An unpinned float32 matmul may run in TF32 on the GPU's tensor cores (10
+# mantissa bits); for quantum dynamics that turns near-identity propagator
+# products into ~1e-3/step errors. Force full-f32 products by default; users
+# can still lower precision per-op via the ``precision=`` argument or
+# ``jax.default_matmul_precision``.
 if jax.config.jax_default_matmul_precision is None:
     jax.config.update("jax_default_matmul_precision", "highest")
 

@@ -108,11 +108,10 @@ class OperatorCollection:
 
         For 1d ``y`` the operators are multiplied into the state BEFORE the
         linear combination (``Sigma_j c_j (G_j y)``), like the reference's
-        sparse path (``operator_collections.py:238-248``) — but here for TPU
-        layout: under ``vmap`` over a parameter sweep this shape becomes one
-        ``(k*n, n) @ (n, B)`` matmul with the sweep batch on the lane
-        dimension (full MXU tiles), instead of B independent padded ``(n, n)``
-        matmuls.
+        sparse path (``operator_collections.py:238-248``) — but here for the
+        batched layout: under ``vmap`` over a parameter sweep this shape
+        becomes one ``(k*n, n) @ (n, B)`` matmul with the sweep batch as the
+        wide dimension, instead of B independent small ``(n, n)`` matmuls.
         """
         if not self._sparse and jnp.ndim(y) == 1 and self._operators is not None:
             xp = jnp if (contains_tracer(coefficients, y)

@@ -1,13 +1,13 @@
-r"""Differentiable adaptive fused sweeps: Pallas primal, recorded-grid replay.
+r"""Differentiable adaptive fused sweeps: lockstep primal, recorded-grid replay.
 
-The lockstep-adaptive Pallas kernel (:mod:`.adaptive_sweep`) is the fastest
-solver in the framework but carries no autodiff rules, and a ``while_loop``
-with data-dependent trip count cannot be reverse-differentiated anyway. The
-trick (VERDICT r2 item 2): adaptivity only *chooses* the step grid — the
-solution is an ordinary fixed-grid dopri5 integration OF THAT GRID. So:
+The lockstep-adaptive engines (:mod:`.adaptive_sweep`) carry no autodiff
+rules — the Triton kernel has none, and a ``while_loop`` with a
+data-dependent trip count cannot be reverse-differentiated anyway. The trick:
+adaptivity only *chooses* the step grid — the solution is an ordinary
+fixed-grid dopri5 integration OF THAT GRID. So:
 
-- **forward**: run the Pallas kernel with ``record_steps=True`` — it
-  additionally returns each tile's accepted step sizes (``(n_tiles,
+- **forward**: run the lockstep engine with ``record_steps=True`` — it
+  additionally returns each group's accepted step sizes (``(n_groups,
   max_steps)`` f32, zero-padded);
 - **backward**: replay the recorded grid with :func:`dopri5_replay` — plain
   XLA ops, chunk-checkpointed ``lax.scan``, one ``lax.cond`` skip per step so
@@ -16,17 +16,13 @@ solution is an ordinary fixed-grid dopri5 integration OF THAT GRID. So:
   non-differentiable (the standard convention for adaptive solvers: gradients
   flow through the accepted states, not the controller).
 
-The replay reproduces the kernel's integration faithfully: identical dopri5
-tableau, identical df32 time accumulation, identical EFT-reduced phase
-arguments (``trig_reduce``), identical envelope-cell selection at the step
-midpoint, identical trajectory-store logic — so the replayed trajectory
-matches the Pallas primal to f32 roundoff and the VJP is the exact adjoint of
-(that faithful copy of) the primal computation.
-
-The frame rotation is applied in its diagonal-conjugation form
-``G y = D^(-1) (A (D y))`` with ``D = diag(e^{i w t})`` — mathematically
-identical to the kernel's Hadamard phase matrix (``omega[i,m] = w[m] - w[i]``)
-but O(n) instead of O(n^2) phase evaluations per stage.
+The replay reproduces the primal's integration faithfully: identical dopri5
+tableau, identical df32 time accumulation, the same right-hand side
+(:func:`.adaptive_sweep.lockstep_rhs`, EFT-reduced phase arguments and the
+frame as the diagonal conjugation ``G y = D^(-1) (A (D y))``), identical
+envelope-cell selection at the step midpoint, identical trajectory-store
+logic — so the replayed trajectory matches the primal to f32 roundoff and
+the VJP is the exact adjoint of (that faithful copy of) the primal.
 """
 from __future__ import annotations
 
@@ -42,7 +38,8 @@ from .rk_tableaus import (
     DOPRI5_C as _C,
     DOPRI5_N_STAGES as _N_STAGES,
 )
-from .trig_reduce import reduced_phase, split_const, time_add
+from .adaptive_sweep import lockstep_rhs, sweep_dopri5_lockstep_split
+from .trig_reduce import split_const, time_add
 
 __all__ = ["dopri5_replay", "sweep_dopri5_lockstep_ad"]
 
@@ -67,7 +64,7 @@ def dopri5_replay(
 
     Args mirror :func:`.adaptive_sweep.sweep_dopri5_lockstep` (inputs already
     f32-split and with ``signal_amps`` in (k, n_env, B) complex layout);
-    ``h_rec`` is the (n_tiles, max_steps) accepted-step record (zero-padded).
+    ``h_rec`` is the (n_groups, max_steps) accepted-step record (zero-padded).
     Returns the (n, B) final state, or ``(final, (n_eval, n, B) trajectory)``
     with ``eval_ts``.
     """
@@ -91,7 +88,6 @@ def dopri5_replay(
     w_lo = jnp.asarray(omega_lo).astype(f32)[0]
     fr_hi = jnp.asarray(freq_hi).astype(f32).reshape(k)
     fr_lo = jnp.asarray(freq_lo).astype(f32).reshape(k)
-    t0_df = (jnp.float32(split_const(float(t0))[0]), jnp.float32(split_const(float(t0))[1]))
     inv_env_dt = 1.0 / env_dt if env_dt > 0 else 0.0
 
     # lanes -> (L, tile_b) tile-major
@@ -105,39 +101,9 @@ def dopri5_replay(
         n_eval = ts.size
         targets = jnp.asarray(ts)
 
-    def abs_time(s_pair):
-        """absolute-time df pair from the elapsed pair, per tile (L,).
-
-        MUST match the adaptive kernel's own absolute-time rounding
-        (``trig_reduce.time_add_df``) bit-for-bit so the replayed grid
-        reproduces the primal's phase arguments exactly.
-        """
-        from .trig_reduce import time_add_df
-
-        return time_add_df(s_pair, t0_df)
-
-    def rhs(y_in, st_pair, cell):
-        """G(t) y with G = D^-1 A D (frame conjugation), per tile times."""
-        st_abs = abs_time(st_pair)
-        ph_w = reduced_phase(
-            (w_hi[None, :], w_lo[None, :]),
-            (st_abs[0][:, None], st_abs[1][:, None]),
-        )  # (L, n)
-        d_plus = jax.lax.complex(jnp.cos(ph_w), jnp.sin(ph_w))  # e^{+i w t}
-        ph_c = reduced_phase(
-            (fr_hi[None, :], fr_lo[None, :]),
-            (st_abs[0][:, None], st_abs[1][:, None]),
-        )  # (L, k)
-        carrier = jax.lax.complex(jnp.cos(ph_c), jnp.sin(ph_c))
-        # envelope at the step's shared cell: (k, L, Bt)
-        env = jnp.take_along_axis(amps_t, cell[None, None, :, None], axis=1)[:, 0]
-        # c_j = Re[E e^{i w t}]
-        coeff = jnp.real(env * jnp.swapaxes(carrier, 0, 1)[:, :, None])  # (k, L, Bt)
-        u = y_in * d_plus[:, None, :]
-        su = jnp.einsum("nm,lbm->lbn", static, u)
-        ou = jnp.einsum("jnm,lbm->jlbn", ops, u)
-        au = su + jnp.einsum("jlb,jlbn->lbn", coeff.astype(c64), ou)
-        return au * jnp.conj(d_plus)[:, None, :]
+    rhs = lockstep_rhs(
+        static, ops, (w_hi, w_lo), (fr_hi, fr_lo), split_const(float(t0)), amps_t
+    )
 
     def one_step(carry, h):
         """One recorded (possibly zero-length) dopri5 step; h: (L,)."""
@@ -231,14 +197,12 @@ def sweep_dopri5_lockstep_ad(
     y0,
     tf, t0, atol, rtol, max_steps, h0, tile_b, env_dt, eval_ts, interpret,
 ):
-    """Differentiable lockstep-adaptive sweep: Pallas primal, recorded-grid
+    """Differentiable lockstep-adaptive sweep: lockstep primal, recorded-grid
     XLA replay adjoint (see the module docstring). Array arguments must be
     pre-split (the glue holds the host f64 values); statics are positional
-    for ``custom_vjp``. Returns what the kernel returns (final state, plus
+    for ``custom_vjp``. Returns what the engine returns (final state, plus
     trajectory with ``eval_ts``)."""
-    from .adaptive_sweep import _sweep_dopri5_lockstep_jit
-
-    return _sweep_dopri5_lockstep_jit(
+    return sweep_dopri5_lockstep_split(
         static_op, operators, omega_hi, omega_lo, freq_hi, freq_lo,
         signal_amps, y0, **_ad_statics(
             tf, t0, atol, rtol, max_steps, h0, tile_b, env_dt, eval_ts, interpret
@@ -251,9 +215,7 @@ def _ad_fwd(
     y0,
     tf, t0, atol, rtol, max_steps, h0, tile_b, env_dt, eval_ts, interpret,
 ):
-    from .adaptive_sweep import _sweep_dopri5_lockstep_jit
-
-    out, rec = _sweep_dopri5_lockstep_jit(
+    out, rec = sweep_dopri5_lockstep_split(
         static_op, operators, omega_hi, omega_lo, freq_hi, freq_lo,
         signal_amps, y0, record_steps=True, **_ad_statics(
             tf, t0, atol, rtol, max_steps, h0, tile_b, env_dt, eval_ts, interpret
@@ -274,7 +236,7 @@ def _ad_bwd(
         static_op, operators, omega_hi, omega_lo, freq_hi, freq_lo,
         signal_amps, y0, rec,
     ) = residuals
-    # the kernel needs env_dt > 0 only in table mode; replay mirrors that
+    # the engines need env_dt > 0 only in table mode; replay mirrors that
     eff_env_dt = env_dt if env_dt > 0 else float(tf) - float(t0)
 
     def f(static_op, operators, omega_hi, omega_lo, freq_hi, freq_lo,

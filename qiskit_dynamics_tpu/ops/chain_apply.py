@@ -1,131 +1,37 @@
-r"""Streamed propagator-chain application kernel.
+r"""Propagator-chain application: ``y_b <- U_{T-1,b} ... U_{0,b} y_b``.
 
-Applies a sequence of per-step, per-lane propagators to a state:
-``y_b <- U_{T-1,b} ... U_{1,b} U_{0,b} y_b`` for every lane ``b``.
-
-The propagator stack lives in HBM as ``(T, n, n, B)`` real/imag planes; the
-Pallas grid is ``(B/TILE_B, T)`` with the step axis innermost, so each step's
-``(n, n, TILE_B)`` block is DMA-streamed into VMEM (auto double-buffered by
-the pipeline) while the state block stays resident in the revisited output
-window. One kernel launch replaces T sequential batched matvecs — the
-sequential bottleneck of Dysolve-style steppers (reference composes with
+The sequential half of Dysolve-style steppers (the reference composes with
 ``associative_scan``, ``perturbative_solver.py:189-210``, which materializes
 log-depth intermediate products; for a final-state-only solve the streamed
-chain does strictly less work and keeps everything on-chip).
+chain does strictly less work). One ``lax.scan`` of batched mat-vecs: memory
+bound, with nothing for a hand-written kernel to fuse.
 """
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-__all__ = ["chain_apply_bol", "chain_apply_bol_ad"]
+__all__ = ["chain_apply"]
 
 
-def _kernel(n: int, ur_ref, ui_ref, y0r_ref, y0i_ref, outr_ref, outi_ref):
-    t = pl.program_id(1)
+def chain_apply(props, y0):
+    """Apply a per-member propagator chain to a state.
 
-    @pl.when(t == 0)
-    def _():
-        for i in range(n):
-            outr_ref[i] = y0r_ref[i]
-            outi_ref[i] = y0i_ref[i]
-
-    # y <- U_t @ y; reads staged into locals before any write
-    acc_r = []
-    acc_i = []
-    for i in range(n):
-        ar = jnp.zeros_like(outr_ref[i])
-        ai = jnp.zeros_like(outi_ref[i])
-        for m in range(n):
-            ur = ur_ref[0, i, m]
-            ui = ui_ref[0, i, m]
-            ar += ur * outr_ref[m] - ui * outi_ref[m]
-            ai += ur * outi_ref[m] + ui * outr_ref[m]
-        acc_r.append(ar)
-        acc_i.append(ai)
-    for i in range(n):
-        outr_ref[i] = acc_r[i]
-        outi_ref[i] = acc_i[i]
-
-
-@functools.partial(jax.jit, static_argnames=("tile_b", "interpret"))
-def chain_apply_bol(props, y0, tile_b: int = 512, interpret: bool = False):
-    """Apply a per-lane propagator chain to a state.
+    Differentiable in ``props`` and ``y0``: the scan step is checkpointed,
+    so reverse-mode AD stores only the per-step state.
 
     Args:
-        props: (T, n, n, B) complex per-step propagators (step 0 first).
-        y0: (n, B) complex initial states.
-        tile_b: lane-tile size (B must be a multiple).
-        interpret: interpreter mode for CPU tests.
+        props: (T, B, n, n) complex per-step propagators (step 0 first).
+        y0: (B, n) complex initial states.
 
     Returns:
-        (n, B) complex final states.
+        (B, n) complex final states.
     """
-    T, n, _, B = props.shape
-    if T == 0:
-        raise ValueError("chain_apply_bol requires at least one propagator (T >= 1).")
-    if B % tile_b != 0:
-        raise ValueError(f"batch {B} must be a multiple of tile_b={tile_b}")
-    f32 = jnp.float32 if not jax.config.jax_enable_x64 else jnp.float64
-    ur = jnp.real(props).astype(f32)
-    ui = jnp.imag(props).astype(f32)
-    y0r = jnp.real(y0).astype(f32)
-    y0i = jnp.imag(y0).astype(f32)
-
-    grid = (B // tile_b, T)
-    prop_spec = pl.BlockSpec(
-        (1, n, n, tile_b), lambda b, t: (t, 0, 0, b), memory_space=pltpu.VMEM
-    )
-    # state block revisited across the (serial) step axis
-    y_spec = pl.BlockSpec((n, tile_b), lambda b, t: (0, b), memory_space=pltpu.VMEM)
-
-    outr, outi = pl.pallas_call(
-        functools.partial(_kernel, n),
-        grid=grid,
-        in_specs=[prop_spec, prop_spec, y_spec, y_spec],
-        out_specs=[y_spec, y_spec],
-        out_shape=[jax.ShapeDtypeStruct((n, B), f32)] * 2,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary")
-        ),
-        interpret=interpret,
-    )(ur, ui, y0r, y0i)
-    return outr + 1j * outi
-
-
-def _chain_apply_xla(props, y0):
-    """The identical chain polynomial as ordinary XLA ops (adjoint path).
-
-    Checkpointed scan: reverse-mode AD stores only the per-step state and
-    recomputes the batched matvec in the backward pass instead of saving
-    ``(T, n, B)`` intermediates."""
+    if props.shape[0] == 0:
+        raise ValueError("chain_apply requires at least one propagator (T >= 1).")
 
     def step(y, u):
-        return jnp.einsum("ijb,jb->ib", u, y), None
+        return jnp.einsum("bij,bj->bi", u, y), None
 
-    yf, _ = jax.lax.scan(jax.checkpoint(step), y0, props)
+    yf, _ = jax.lax.scan(jax.checkpoint(step), jnp.asarray(y0), jnp.asarray(props))
     return yf
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2, 3))
-def chain_apply_bol_ad(props, y0, tile_b: int = 512, interpret: bool = False):
-    """:func:`chain_apply_bol` with gradients — streamed Pallas primal,
-    XLA-scan adjoint (the repo's standard custom-vjp pairing; see
-    ``ops/sweep_ad.py``). Differentiable in ``props`` and ``y0``."""
-    return chain_apply_bol(props, y0, tile_b=tile_b, interpret=interpret)
-
-
-def _chain_fwd(props, y0, tile_b, interpret):
-    return chain_apply_bol_ad(props, y0, tile_b, interpret), (props, y0)
-
-
-def _chain_bwd(tile_b, interpret, residuals, cotangent):
-    _, vjp = jax.vjp(_chain_apply_xla, *residuals)
-    return vjp(cotangent)
-
-
-chain_apply_bol_ad.defvjp(_chain_fwd, _chain_bwd)

@@ -2,14 +2,14 @@ r"""Branch-free batched matrix exponentials for the fixed-step hot path.
 
 ``jax.scipy.linalg.expm`` selects among five Pade orders with ``lax.cond`` and
 runs a dynamic squaring loop; under ``vmap`` the conds become ``select``\s and
-EVERY branch is computed, and on TPU the many small dispatches dominate
-wall-clock (measured: batched-expm cost is per-op overhead, not FLOPs, for
-dims <= 128). For fixed-step solvers the step generators have a KNOWN norm
+EVERY branch is computed, and for small dims the many small operations
+dominate wall-clock (batched-expm cost is per-op overhead, not FLOPs). For
+fixed-step solvers the step generators have a KNOWN norm
 bound (``max_dt`` times a generator scale), so a fixed-order Taylor with a
 static number of squarings is exact to working precision with a fraction of
 the operations — and the polynomial is evaluated Paterson-Stockmeyer style,
 so a degree-12 Taylor costs 5 matmuls instead of Horner's 11 (matmuls are
-the entire cost at dim >= 64 on the MXU).
+the entire cost at dim >= 64).
 
 Error bound: for ``theta = ||A|| / 2**squarings``, the truncation error is
 ``~ theta**(order+1) / (order+1)!``; the default (order=12, squarings=2)

@@ -3,9 +3,9 @@
 Reference analog: ``/root/reference/qiskit_dynamics/arraylias/register_functions/linear_combo.py``
 (``tensordot(coeffs, mats, axes=1)``).
 
-TPU note: signal coefficients are real while operator stacks are complex. A
-naive tensordot promotes the coefficients to complex and XLA then performs 4
-real MXU matmuls; splitting the operators into real/imag parts instead costs 2
+Signal coefficients are real while operator stacks are complex. A naive
+tensordot promotes the coefficients to complex and XLA then performs 4
+real matmuls; splitting the operators into real/imag parts instead costs 2
 real contractions. We do the split whenever the coefficient dtype is real.
 """
 from __future__ import annotations

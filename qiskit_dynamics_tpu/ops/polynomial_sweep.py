@@ -3,8 +3,7 @@ r"""Polynomial-expanded Magnus sweep engine: the large-dim fast path.
 The batch-major XLA engine (:mod:`.xla_sweep`) spends its time, at large
 ``n``, in per-member batched commutator matmuls: Magnus order 3 with
 non-anti-Hermitian generators costs 6 ``(B, n, n) @ (B, n, n)`` products per
-step — ~1.65e12 real flops/step at the dim-256 bench row, which bounds it at
-~166 sims/s (BENCH_r04 ``lindblad_dim256_sims_per_sec``; VERDICT r4 item 7).
+step, ~8e8 real flops per member per step at ``n = 256``.
 
 This engine removes the batched matmuls ALGEBRAICALLY. The frame phase mask
 is a diagonal conjugation — ``P(t) ∘ A = D(t) A D(t)^{-1}`` with
@@ -28,7 +27,7 @@ there) into
 
 with ``Q`` member-independent matrices ``X_q`` (Q <= 56 for one drive
 operator at Magnus order 3). Per step the device then does: one monomial
-gather-product ``(Q, B)``, ONE ``(B, Q) @ (Q, n^2)`` MXU contraction, two
+gather-product ``(Q, B)``, ONE ``(B, Q) @ (Q, n^2)`` matmul, two
 diagonal phase multiplies on the state, and the Horner ``expm`` action — no
 batched ``n^3`` work at all. Same step rule, same polynomial, ~10x fewer
 flops at dim 256.
@@ -45,7 +44,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from .sweep_solver import (
+from .xla_sweep import (
     _GAUSS3_D1,
     _GAUSS3_D2,
     _GAUSS3_D3,
@@ -54,8 +53,8 @@ from .sweep_solver import (
     _M3_C0,
     _M3_C1,
     _P2,
+    _validate_eval_slots,
 )
-from .horner_pallas import horner_apply_bm_ad
 from .trig_reduce import reduced_phase, split_const, step_time_df
 
 __all__ = ["sweep_expm_magnus_poly", "expand_magnus_polynomial"]
@@ -185,12 +184,10 @@ def _cached_expansion(static_op, operators, frame_diag, dt, magnus_order):
 
 @functools.partial(
     jax.jit,
-    static_argnames=(
-        "dt", "t0", "order", "magnus_order", "eval_slots", "horner", "interpret"
-    ),
+    static_argnames=("dt", "t0", "order", "magnus_order", "eval_slots"),
 )
 def _sweep_poly_jit(
-    X_re,            # (Q, n*n) f; TRANSPOSED planes when horner="pallas"
+    X_re,            # (Q, n*n) f
     X_im,
     mon_index,       # (Q, deg_max) int32
     d_im_hi, d_im_lo,  # (n,) imag part of frame diag, split
@@ -201,8 +198,6 @@ def _sweep_poly_jit(
     order: int,
     magnus_order: int,
     eval_slots=None,
-    horner: str = "einsum",
-    interpret: bool = False,
 ):
     cplx = jnp.complex64 if not jax.config.jax_enable_x64 else jnp.complex128
     real = jnp.float32 if not jax.config.jax_enable_x64 else jnp.float64
@@ -231,8 +226,6 @@ def _sweep_poly_jit(
     n_eval = 0
     slots = None
     if eval_slots is not None:
-        from .sweep_solver import _validate_eval_slots
-
         n_eval = _validate_eval_slots(eval_slots, T)
         slots = jnp.asarray(np.asarray(eval_slots, dtype=np.int32))
 
@@ -247,7 +240,7 @@ def _sweep_poly_jit(
         ones = jnp.ones((1, B), dtype=real)
         c_ext = jnp.concatenate([c_flat, ones], axis=0)
         mono = jnp.prod(c_ext[mi], axis=1)  # (Q, B)
-        # ONE MXU contraction per real/imag plane: (B, Q) @ (Q, n^2)
+        # ONE matmul per real/imag plane: (B, Q) @ (Q, n^2)
         monT = jnp.swapaxes(mono, 0, 1)
         Mr = (monT @ Xr).reshape(B, n, n)
         Mi = (monT @ Xi).reshape(B, n, n)
@@ -255,23 +248,11 @@ def _sweep_poly_jit(
         ph = ref_phase(idx)
         Dinv = jnp.exp(-1j * ph.astype(cplx))[None, :, None]
         v = Dinv * y
-        # v <- expm(M) v (identical polynomial to the xla/member engines)
-        if horner == "pallas":
-            # X planes arrive TRANSPOSED in this mode, so Mr/Mi are the
-            # M^T planes the VMEM-resident kernel consumes; all Taylor
-            # iterations run on-chip without re-reading M from HBM
-            # (ops/horner_pallas.py — measured 8x HBM re-read floor
-            # otherwise, scripts/horner_ab.py)
-            ur, ui = horner_apply_bm_ad(
-                Mr, Mi, jnp.real(v[..., 0]), jnp.imag(v[..., 0]),
-                order, 8, interpret,
-            )
-            w = (ur + 1j * ui).astype(cplx)[..., None]
-        else:
-            M = (Mr + 1j * Mi).astype(cplx)
-            w = v
-            for kk in range(order, 0, -1):
-                w = v + jnp.einsum("bij,bjm->bim", M, w) / kk
+        # v <- expm(M) v (identical polynomial to the xla engine)
+        M = (Mr + 1j * Mi).astype(cplx)
+        w = v
+        for kk in range(order, 0, -1):
+            w = v + jnp.einsum("bij,bjm->bim", M, w) / kk
         y_new = jnp.conj(Dinv) * w
         if n_eval > 0:
             slot = slots[idx]
@@ -298,7 +279,6 @@ def _sweep_poly_jit(
 def sweep_expm_magnus_poly(
     static_op, operators, frame_diag, coefficients, y0,
     dt, t0=0.0, order=8, eval_slots=None, magnus_order=2,
-    horner="auto", interpret=False,
 ):
     """Fixed-step Magnus sweep solve via the polynomial-expanded engine.
 
@@ -320,12 +300,6 @@ def sweep_expm_magnus_poly(
         order: Horner Taylor order of the ``expm`` action.
         eval_slots: optional per-step trajectory store slots (as xla engine).
         magnus_order: 2 or 3.
-        horner: ``"auto"`` (default), ``"einsum"``, or ``"pallas"`` — the
-            ``expm``-action engine. ``"pallas"`` keeps each step matrix
-            VMEM-resident across all Taylor iterations
-            (:mod:`.horner_pallas`; single-column states, f32 mode);
-            ``"auto"`` selects it on TPU when applicable.
-        interpret: run the Pallas path in the interpreter (CPU tests).
 
     Returns:
         as :func:`.xla_sweep.sweep_expm_magnus2_xla`.
@@ -343,43 +317,7 @@ def sweep_expm_magnus_poly(
     d_lo = (d_im - d_hi.astype(np.float64)).astype(np.float32)
     if jax.config.jax_enable_x64:
         d_hi, d_lo = d_im, np.zeros_like(d_im)
-    # shape-only probes (np.ndim/np.shape read attributes): y0 may be a
-    # tracer when fused_sweep_solve is called under an outer jit
-    m_cols = 1 if np.ndim(y0) == 2 else int(np.shape(y0)[-1])
-    if horner == "pallas" and m_cols != 1:
-        raise ValueError(
-            "horner='pallas' supports single-column states only "
-            f"(got m={m_cols}); use horner='einsum' for matrix states."
-        )
-    if horner == "auto":
-        horner = (
-            "pallas"
-            if (
-                m_cols == 1
-                and not jax.config.jax_enable_x64
-                and jax.default_backend() == "tpu"
-                and n >= 64
-            )
-            else "einsum"
-        )
-        if horner == "pallas" and n >= 128:
-            import warnings
-
-            # measured: ~6.3 min cold Mosaic compile at solve_dim 256 with
-            # the default loop-form kernel body (~26.5 min for the unrolled
-            # body; BENCHMARKS.md dim-256 section); seconds warm from the
-            # persistent compile cache
-            warnings.warn(
-                f"poly_horner auto-selected the Pallas Horner kernel at "
-                f"solve_dim {n}: 1.86x steady throughput, but the cold "
-                "Mosaic compile takes minutes at large dims (~6 min at "
-                "dim 256; cached runs are seconds). For one-shot cold "
-                "runs pass poly_horner='einsum' (identical numerics).",
-                stacklevel=2,
-            )
-    Xf = X.reshape(X.shape[0], -1) if horner != "pallas" else np.swapaxes(
-        X, 1, 2
-    ).reshape(X.shape[0], -1)
+    Xf = X.reshape(X.shape[0], -1)
     return _sweep_poly_jit(
         Xf.real.copy(),
         Xf.imag.copy(),
@@ -389,5 +327,4 @@ def sweep_expm_magnus_poly(
         dt=float(dt), t0=float(t0), order=int(order),
         magnus_order=int(magnus_order),
         eval_slots=None if eval_slots is None else tuple(int(s) for s in np.asarray(eval_slots)),
-        horner=horner, interpret=bool(interpret),
     )

@@ -1,10 +1,10 @@
 r"""Accurate f32 phase evaluation: ``(w * t) mod 2pi`` without precision loss.
 
-The fused kernels evaluate frame/carrier phases ``cos(w t)`` at absolute
+The fused engines evaluate frame/carrier phases ``cos(w t)`` at absolute
 times: at ``w t ~ 600`` rad (3-transmon serving configs reach this within one
 schedule) a plain f32 product carries ``ulp(600) ~ 6e-5`` rad of error before
-the trig function ever runs — measured as the 1.3e-4 accuracy floor of the
-dim-27 fused serving path (BENCHMARKS.md). This module removes that floor:
+the trig function ever runs — a ~1e-4 accuracy floor for the dim-27 fused
+serving path. This module removes that floor:
 
 - time is tracked as an unevaluated f32 pair ``(t_hi, t_lo)`` (double-float,
   ~2^-48 relative — see :mod:`.df32` for the EFT primitives);
@@ -17,9 +17,9 @@ dim-27 fused serving path (BENCHMARKS.md). This module removes that floor:
 Absolute phase error after reduction: a few f32 ulps of the reduced value
 (~5e-7 rad for phases up to ~1e5 rad), independent of ``|w t|``.
 
-Everything here is straight-line jnp on f32 — safe inside Pallas TPU kernels
-(the only non-arithmetic ops are the int32 bitcasts of the df32 split) and in
-plain XLA code. All helpers are no-ops conceptually in f64 (callers gate on
+Everything here is straight-line jnp on f32 — safe inside the Pallas Triton
+kernel (the only non-arithmetic ops are the int32 bitcasts of the df32 split)
+and in plain XLA code. All helpers are no-ops conceptually in f64 (callers gate on
 dtype and skip reduction under x64, where plain products are already exact
 enough).
 """

@@ -1,14 +1,13 @@
-r"""Batch-major XLA engine for fixed-step Magnus-2 sweeps (large dimensions).
+r"""Batch-major XLA engine for fixed-step Magnus sweeps.
 
-Same semantics as :func:`~qiskit_dynamics_tpu.ops.sweep_solver.sweep_expm_magnus2`
-(identical Magnus-2 + Horner-Taylor polynomial, same step rule), but built on
-``(B, n, n)`` batch-major complex matmuls under one ``lax.scan`` over time —
-the MXU path. The Pallas batch-on-lanes kernel (row-looped above n = 16)
-compiles up to n = 64 within the VMEM budget but, measured on-chip, only
-ties this engine above n ~ 32 (fori rows lose the unrolled ILP); this engine
-compiles in seconds at ANY ``n`` and lets XLA tile the batched matmuls onto
-the MXU. ``solvers.fused_sweep_solve`` auto-selects it for
-``solve_dim > 32`` (vectorized Lindblad models reach ``n = dim^2`` quickly).
+Per step: build each member's Gauss-point generators ``(B, n, n)``, combine
+them with the Magnus-2 (4th order) or Magnus-3 (6th order) commutator rule,
+and apply ``expm(M) y`` as a Horner mat-vec Taylor polynomial — the
+propagator matrix is never formed. Batched complex matmuls under one
+fixed-length ``lax.scan`` over time: no per-step host synchronisation, and
+reverse-mode AD through the checkpointed scan stores only the per-step state.
+``solvers.fused_sweep_solve`` runs it up to ``solve_dim`` 128 (above that the
+polynomial-expanded engine, ``ops/polynomial_sweep.py``).
 
 Reference math: Magnus-2 Gauss-point commutator rule
 (``/root/reference/qiskit_dynamics/solvers/fixed_step_solvers.py:321-403``).
@@ -21,19 +20,64 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from .sweep_solver import (
-    _GAUSS3_D1,
-    _GAUSS3_D2,
-    _GAUSS3_D3,
-    _GAUSS_C1,
-    _GAUSS_C2,
-    _M3_C0,
-    _M3_C1,
-    _P2,
-)
-from .trig_reduce import reduced_phase, split_const, step_time_df
+from .trig_reduce import reduced_phase, split_array, split_const, step_time_df
 
-__all__ = ["sweep_expm_magnus2_xla"]
+# 2-point Gauss-Legendre nodes and the Magnus-2 commutator weight
+_GAUSS_C1 = 0.5 - np.sqrt(3) / 6
+_GAUSS_C2 = 0.5 + np.sqrt(3) / 6
+_P2 = np.sqrt(3) / 12
+
+# 3-point Gauss-Legendre nodes + Magnus order-3 (6th-order) combination
+# coefficients (Blanes et al. 2009; same rule as
+# solvers/fixed_step_solvers.get_exponential_take_step magnus_order=3)
+_GAUSS3_D1 = 0.5 - np.sqrt(15) / 10
+_GAUSS3_D2 = 0.5
+_GAUSS3_D3 = 0.5 + np.sqrt(15) / 10
+_M3_C0 = np.sqrt(15) / 3
+_M3_C1 = 10.0 / 3
+
+
+def split_omega_host(frame_omega):
+    """f32 (hi, lo) split of a frequency array, host-side when possible.
+
+    Must be called BEFORE the jit boundary: without x64 JAX casts f64 inputs
+    to f32 at the boundary, losing exactly the bits the lo half preserves
+    (the representation error ``w 2^-24 t`` dominates large-phase trig).
+    Under x64, or for traced values (bits already gone), lo is zero.
+    """
+    if jax.config.jax_enable_x64:
+        om = jnp.asarray(frame_omega)
+        return om, jnp.zeros_like(om)
+    try:
+        om = np.asarray(frame_omega)
+    except Exception:  # traced value
+        om = jnp.asarray(frame_omega).astype(jnp.float32)
+        return om, jnp.zeros_like(om)
+    hi, lo = split_array(om)
+    return jnp.asarray(hi), jnp.asarray(lo)
+
+
+def _validate_eval_slots(eval_slots, T: int) -> int:
+    """Validate a trajectory slot table; returns ``n_eval``.
+
+    The non-negative entries must be exactly a permutation of
+    ``range(n_eval)`` — a duplicate or gapped slot would leave trajectory
+    slots unwritten (silent zeros) with no NaN-poison to flag it.
+    """
+    if len(eval_slots) != T:
+        raise ValueError(f"eval_slots must have length T={T}")
+    marked = sorted(int(s) for s in eval_slots if int(s) >= 0)
+    if not marked:
+        raise ValueError("eval_slots must mark at least one step")
+    if marked != list(range(len(marked))):
+        raise ValueError(
+            "the non-negative eval_slots values must be exactly a "
+            f"permutation of range(n_eval); got {marked}."
+        )
+    return len(marked)
+
+
+__all__ = ["sweep_expm_magnus2_xla", "split_omega_host"]
 
 
 def sweep_expm_magnus2_xla(
@@ -43,10 +87,8 @@ def sweep_expm_magnus2_xla(
 ):
     """Public shim over :func:`_sweep_expm_magnus2_xla_jit`: splits the frame
     frequency matrix into an f32 (hi, lo) pair host-side (see
-    :func:`.sweep_solver.split_omega_host`). Arguments documented below."""
+    :func:`split_omega_host`). Arguments documented below."""
     if frame_omega_lo is None:
-        from .sweep_solver import split_omega_host
-
         frame_omega, frame_omega_lo = split_omega_host(frame_omega)
     return _sweep_expm_magnus2_xla_jit(
         static_op, operators, frame_omega, frame_omega_lo, coefficients, y0,
@@ -73,15 +115,23 @@ def _sweep_expm_magnus2_xla_jit(
     eval_slots=None,
     magnus_order: int = 2,
 ):
-    r"""Fixed-step Magnus-2 sweep solve, batch-major XLA implementation.
+    r"""Fixed-step Magnus sweep solve, batch-major XLA implementation.
 
-    Args/returns match :func:`~qiskit_dynamics_tpu.ops.sweep_solver.sweep_expm_magnus2`
-    (``coefficients`` ``(T, n_gauss, k, B)`` with ``n_gauss = magnus_order``
-    Gauss-point samples per step, ``y0``/result ``(n, B)`` complex in the
-    frame basis, optional static ``eval_slots`` tuple producing an
-    ``(n_eval, n, B)`` trajectory second output); no ``tile_b`` — XLA picks
-    the tiling. ``magnus_order`` 2 (4th order, 2-point Gauss) or 3 (6th
-    order, 3-point Gauss).
+    Args:
+        static_op: (n, n) static generator in the frame basis.
+        operators: (k, n, n) signal operators in the frame basis.
+        frame_omega, frame_omega_lo: (n, n) frame frequency differences as
+            an f32 (hi, lo) split.
+        coefficients: (T, n_gauss, k, B) real Gauss-point signal samples
+            (``n_gauss = magnus_order``).
+        y0: (n, B) complex frame-basis states (or batch-major, below).
+        dt, t0: uniform step size and initial time.
+        order: Taylor order of the Horner ``expm`` action.
+        hermitian: all generators anti-Hermitian (one-matmul commutator).
+        eval_slots: optional static per-step trajectory slots (-1 = none),
+            producing an ``(n_eval, n, B)`` trajectory second output.
+        magnus_order: 2 (4th order, 2-point Gauss) or 3 (6th order, 3-point
+            Gauss).
 
     ``y0`` may alternatively be 3d ``(B, n, m)`` batch-major — ``m`` state
     columns per sweep member sharing one generator (unitary/propagator
@@ -111,9 +161,8 @@ def _sweep_expm_magnus2_xla_jit(
     def frame_phase(idx, gauss_c):
         """(n, n) frame phase ``omega * tau`` at ``tau = t0 + (idx+c) dt``.
 
-        f32: EFT step time + mod-2pi reduction (ops/trig_reduce.py) — same
-        treatment as the Pallas kernels, so large absolute phases keep f32
-        trig accurate (and the AD-adjoint replay matches the primal)."""
+        f32: EFT step time + mod-2pi reduction (ops/trig_reduce.py), so
+        large absolute phases keep f32 trig accurate."""
         if f32_mode:
             return reduced_phase(
                 (omega, omega_lo),
@@ -135,8 +184,6 @@ def _sweep_expm_magnus2_xla_jit(
     n_eval = 0
     slots = None
     if eval_slots is not None:
-        from .sweep_solver import _validate_eval_slots
-
         n_eval = _validate_eval_slots(eval_slots, T)
         slots = jnp.asarray(np.asarray(eval_slots, dtype=np.int32))
 
@@ -169,8 +216,7 @@ def _sweep_expm_magnus2_xla_jit(
         y, evals = carry
         idx, coef_step = xs
         M = magnus_matrix(idx, coef_step)
-        # y <- expm(M) y, Horner mat-vec Taylor (same polynomial as the
-        # Pallas kernel)
+        # y <- expm(M) y, Horner mat-vec Taylor
         v = y
         for kk in range(order, 0, -1):
             v = y + jnp.einsum("bij,bjm->bim", M, v) / kk

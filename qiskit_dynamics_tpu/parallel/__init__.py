@@ -1,6 +1,6 @@
-"""Multi-chip parallelism: device meshes, sharded sweeps, sharded scans.
+"""Multi-device parallelism: device meshes, sharded sweeps, sharded scans.
 
-New TPU-native infrastructure with no counterpart in the reference (which is
+New infrastructure with no counterpart in the reference (which is
 single-process; SURVEY.md §2.13/§5).
 """
 from .mesh import DATA_AXIS, TIME_AXIS, make_mesh, data_mesh, batch_sharding, local_device_count

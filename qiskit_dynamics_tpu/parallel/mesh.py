@@ -1,17 +1,19 @@
-"""Device-mesh management for multi-chip TPU execution.
+"""Device-mesh management for multi-device execution.
 
 The reference has no distributed runtime at all (SURVEY.md §2.13/§5; verified:
 no ``pmap``/``shard_map``/``pjit``/collectives anywhere in
-``/root/reference/qiskit_dynamics``). This module is new, first-class
-TPU-native infrastructure: it builds ``jax.sharding.Mesh`` objects over the
-ICI-connected device set and provides the axis conventions used by the sharded
-solve drivers:
+upstream ``qiskit_dynamics``). This module builds ``jax.sharding.Mesh``
+objects over the local devices and provides the axis conventions used by the
+sharded solve drivers. The four cards of one host are joined all to all by
+NVLink, so the mesh shape follows the algorithm alone:
 
 - ``"data"`` — the simulation-batch axis (parameter sweeps, schedule batches,
   batched initial states). Embarrassingly parallel; no collectives inside a
   solve, only at result-gather time.
 - ``"time"`` — the time-step axis of parallel propagator composition
-  (:mod:`.scan`). Requires an O(log P) boundary-propagator exchange over ICI.
+  (:mod:`.scan`): one all-gather of the per-shard block totals.
+- ``"model"`` — Hilbert-space row sharding of the matrices themselves
+  (:mod:`.tensor`).
 """
 from __future__ import annotations
 

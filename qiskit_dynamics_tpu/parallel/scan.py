@@ -1,17 +1,17 @@
-"""Multi-chip propagator composition: sharded associative scan over time.
+"""Multi-device propagator composition: sharded associative scan over time.
 
 The reference's only "scan parallelism" is a single-device
 ``jax.lax.associative_scan`` over per-step propagators
 (``/root/reference/qiskit_dynamics/solvers/fixed_step_solvers.py:589-608``).
-JAX does not provide a multi-chip associative scan out of the box, so this
+JAX does not provide a multi-device associative scan out of the box, so this
 module implements the classic blockwise prefix algorithm over a device mesh:
 
 1. the (T, n, n) stack of per-step propagators is sharded on the time axis;
-2. each chip runs a local log-depth ``associative_scan`` on its block;
-3. each chip's *block total* (last cumulative propagator) is ``all_gather``-ed
-   over ICI — O(P) matrices of size (n, n), one collective;
-4. each chip composes the exclusive prefix of earlier block totals into its
-   local cumulative products with one batched matmul.
+2. each device runs a local log-depth ``associative_scan`` on its block;
+3. each device's *block total* (last cumulative propagator) is
+   ``all_gather``-ed — O(P) matrices of size (n, n), one collective;
+4. each device composes the exclusive prefix of earlier block totals into
+   its local cumulative products with one batched matmul.
 
 Propagator composition order matches the reference's ``reverse_mul``: the
 cumulative product at step k is ``U_k = P_k @ P_{k-1} @ ... @ P_1``.

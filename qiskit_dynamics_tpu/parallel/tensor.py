@@ -1,25 +1,27 @@
-r"""Tensor (Hilbert-space) sharding: large-dim solves across chips.
+r"""Tensor (Hilbert-space) sharding: large-dim solves across devices.
 
 Third parallel axis, complementing ``"data"`` (:mod:`.sweep`) and ``"time"``
 (:mod:`.scan`): shard the *matrices themselves* — operators, propagators,
 states — over a ``"model"`` mesh axis, so a single solve whose
-:math:`O(n^3)` matmul cost exceeds one chip runs SPMD over ICI. The
-reference is single-process with no counterpart (SURVEY.md §5); this module
-is new TPU-native capability.
+:math:`O(n^3)` matmul cost exceeds one device runs SPMD over the device
+interconnect (NVLink between the cards of one host). The reference is
+single-process with no counterpart (SURVEY.md §5); this module is new
+capability.
 
 The design follows the scaling-book recipe verbatim: pick a mesh, annotate
 shardings (row-sharded ``P("model", None)`` matrices here), and let XLA's
-GSPMD partitioner insert the collectives. Per complex matmul each chip
+GSPMD partitioner insert the collectives. Per complex matmul each device
 computes an ``(n/P, n) @ (n, n)`` local product (``n^3/P`` FLOPs) and the
 chain's next step all-gathers the ``n^2/P`` row shard — comms
 :math:`O(n^2)` against compute :math:`O(n^3/P)`, so the axis pays off once
-``n`` is large (ICI crossover around ``n ~ 4k`` at f32; below that use
-``"data"``/``"time"`` sharding, which never communicate mid-solve). Axes
+``n`` is large (the crossover on NVLink-joined cards is not measured yet;
+below it use ``"data"``/``"time"`` sharding, which never communicate
+mid-solve). Axes
 compose: a ``("data", "model")`` mesh runs a BATCH of chains with the batch
 on ``"data"`` and every matrix row-sharded on ``"model"``.
 
 Correctness is mesh-size-independent (GSPMD partitions a fixed program), so
-the 8-device virtual CPU mesh validates what real multi-chip hardware would
+the 8-device virtual CPU mesh validates what real multi-device hardware would
 run; ``__graft_entry__.dryrun_multichip`` exercises this module end-to-end.
 """
 from __future__ import annotations
@@ -73,7 +75,7 @@ def tensor_expm_chain(
 
     Same step semantics/polynomial as :func:`..benchmarks.expm_chain`, but
     every ``(n, n)`` matrix is sharded ``P("model", None)`` over the mesh so
-    the :math:`O(n^3)` expm/apply matmuls split across chips (GSPMD inserts
+    the :math:`O(n^3)` expm/apply matmuls split across devices (GSPMD inserts
     the all-gathers). Accepts batched ``(T, b, n, n)`` generators with
     ``(b, n, n|m)`` states — the batch dim additionally shards over a
     ``"data"`` axis when the mesh has one (2-d tensor+data parallelism).
@@ -131,7 +133,7 @@ def tensor_magnus_solve(
     every per-step generator, Magnus matrix, and expm intermediate carries a
     ``P("model", None)`` sharding constraint, so GSPMD splits the
     :math:`O(n^3)` expm matmuls across the mesh. The model's stored
-    operators stay replicated (memory :math:`O(n^2)` per chip — not the
+    operators stay replicated (memory :math:`O(n^2)` per device — not the
     constraint until ``n ~ 30k``); the FLOPs shard. Differentiable like the
     single-device path (plain ``jnp`` + scan under the constraints).
 

@@ -6,9 +6,9 @@ Represents :math:`f(c) = A_\emptyset + \sum_{I \in S} c_I A_I` with multiset
 monomial labels. Design difference from the reference: monomial evaluation is
 **not** recursive — labels are compiled host-side into one padded index matrix
 and monomials are computed on device as a single gather + axis-product
-(``prod(c_ext[label_matrix], axis=1)``), one fused VPU kernel with no
-sequential dependency chain. Polynomial evaluation is then a single
-``tensordot`` onto the stacked coefficient tensor (MXU).
+(``prod(c_ext[label_matrix], axis=1)``), one fused elementwise kernel with
+no sequential dependency chain. Polynomial evaluation is then a single
+``tensordot`` onto the stacked coefficient tensor.
 
 Algebraic operations (add / mul / matmul, with optional monomial filtering for
 degree truncation) compile sparse product rules host-side and execute through

@@ -11,7 +11,7 @@ compiled **on the host** into dense padded tables:
   (padded with ``(-1, -1)``);
 - ``coeffs``/``idx``: (I, L) linear-combination tables (padded with 0 / -1).
 
-Device execution is then branch-free and MXU/VPU friendly: one batched gather,
+Device execution is then branch-free: one batched gather,
 one ``vmap``-ed binary op over the unique pairs, and one einsum contraction —
 no per-entry Python, no data-dependent control flow.
 """

@@ -492,7 +492,7 @@ class DiscreteSignalSum(DiscreteSignal, SignalSum):
     """Sum of piecewise-constant signals sharing dt/start_time/duration.
 
     Samples form a 2-d array (time, term); evaluation of all terms is a single
-    row gather followed by one complex-exp — the TPU-friendly layout used on
+    row gather followed by one complex-exp — the batched layout used on
     every pulse-simulation hot path.
     """
 

@@ -169,9 +169,8 @@ def tpu_rk_solve(
     Returns an :class:`OdeResult` with solutions at the merged
     ``t_span``/``t_eval`` time points (exact stopping, no interpolation).
 
-    When called outside a JAX trace, the solve self-jits (with a complex-safe
-    boundary) — required on the deployment TPU platform, where eager complex
-    ops are unavailable, and dramatically faster everywhere. Each call
+    When called outside a JAX trace, the solve self-jits (with a ``cjit``
+    boundary) — dramatically faster than eager execution. Each call
     compiles for its ``rhs`` closure; for parameter sweeps, wrap the whole
     computation in ``jit``/``vmap`` instead (the internal jit then inlines).
 

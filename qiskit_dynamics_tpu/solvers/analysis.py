@@ -6,7 +6,7 @@ periodically driven qubit control:
 
 - :func:`lindblad_steady_state` / :func:`lindblad_steady_state_sweep`:
   :math:`\rho_{ss}` with :math:`\mathcal{L}(\rho_{ss}) = 0` for a
-  (vectorized) Lindblad generator, as one batched MXU-friendly linear
+  (vectorized) Lindblad generator, as one batched linear
   solve — differentiable, so dissipative calibration targets (e.g. fitting
   :math:`T_1`/:math:`T_\phi` from saturation spectroscopy) can sit inside
   ``jax.grad``.
@@ -17,12 +17,12 @@ periodically driven qubit control:
   :math:`\langle A(\tau) B(0)\rangle` via the quantum regression theorem,
   and the emission/absorption spectrum as ONE batched frequency-domain
   linear solve :math:`(i\omega - \mathcal{L})^{-1}` — no time integration,
-  every frequency a lane of one MXU-batched solve.
+  every frequency a column of one batched solve.
 
 Steady-state method: with the column-stacking convention
 (``models/model_utils.py``), :math:`\mathrm{vec}(\rho_{ss})` spans the
 nullspace of the :math:`(n^2, n^2)` superoperator :math:`L`. Instead of an
-eigensolve (no general ``eig`` on TPU), solve the trace-bordered normal
+eigensolve (general ``eig`` runs only on the host), solve the trace-bordered normal
 equations
 
 .. math:: (L^\dagger L + v v^\dagger)\, x = v,
@@ -32,7 +32,7 @@ whose unique solution for an irreducible Lindbladian is the trace-scaled
 steady state: :math:`L^\dagger L` is PSD with kernel spanned by
 :math:`\mathrm{vec}(\rho_{ss})`, and the rank-1 trace border makes the
 system positive-definite because a physical steady state has nonzero
-trace. One Hermitian solve, batched over sweep members, MXU throughout.
+trace. One Hermitian solve, batched over sweep members.
 For a degenerate steady-state manifold this returns the trace-normalized
 element selected by the border (the maximally-mixed-direction projection);
 pass ``check_residual`` tolerance to NaN-poison non-converged members
@@ -42,7 +42,7 @@ instead of returning them silently.
 :func:`lindblad_steady_state_sweep`, and :func:`spectrum` materialize the
 dense :math:`(n^2, n^2)` superoperator and solve it directly —
 :math:`O(n^4)` memory and :math:`O(n^6)` flops. That is the right trade at
-``dim <= ~32`` (a dim-32 superoperator is 1024x1024 — 8 MB, one fast MXU
+``dim <= ~32`` (a dim-32 superoperator is 1024x1024 — 8 MB, one fast
 solve); at dim 64 it is 134 MB per member and at dim 128 ~2 GB, so dense
 breaks down between dim 32 and 128 depending on batch size. For larger
 systems use :func:`lindblad_steady_state_iterative` and
@@ -243,7 +243,7 @@ def lindblad_steady_state_sweep(
     The Lindblad generator is linear in the Hamiltonian signal values and
     dissipator rates, so the whole sweep assembles as one tensor
     contraction over precomputed basis superoperators and solves as one
-    batched Hermitian system (MXU end to end; differentiable w.r.t. the
+    batched Hermitian system (differentiable w.r.t. the
     values).
 
     Args:
@@ -320,7 +320,7 @@ def floquet_basis(
 
     Solves the one-period propagator :math:`U(t_0+T, t_0)` on device with
     any ``solve_lmde`` method, then eigendecomposes host-side (general
-    ``eig`` has no TPU lowering; ``dim`` is small once the propagator is
+    ``eig`` runs only on the host; ``dim`` is small once the propagator is
     in hand): :math:`U u_j = e^{-i \epsilon_j T} u_j` with quasienergies
     folded to the first Brillouin zone :math:`(-\pi/T, \pi/T]`.
 
@@ -437,7 +437,7 @@ def spectrum(model, a_op, b_op, frequencies, rho0=None):
     produces a Lorentzian of HWHM :math:`\gamma/2` peaked at
     :math:`\omega = \omega_0`. Every frequency is one right-hand
     side of a batched linear solve — no time integration, no FFT leakage,
-    MXU throughout, differentiable w.r.t. model values upstream.
+    differentiable w.r.t. model values upstream.
 
     Args:
         model: ``LindbladModel`` with ``vectorized=True``, no rotating

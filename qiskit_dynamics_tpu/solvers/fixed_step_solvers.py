@@ -2,9 +2,9 @@
 log-depth parallel propagator chains.
 
 Reference: ``/root/reference/qiskit_dynamics/solvers/fixed_step_solvers.py``.
-The TPU-native payoff lives in the ``*_parallel`` variants: per-step
-propagators are computed batched with ``vmap`` (MXU-saturating batched expm /
-RK4) and chained with ``jax.lax.associative_scan`` — a log-depth matmul tree.
+The accelerator payoff lives in the ``*_parallel`` variants: per-step
+propagators are computed batched with ``vmap`` (batched expm / RK4) and
+chained with ``jax.lax.associative_scan`` — a log-depth matmul tree.
 """
 from __future__ import annotations
 
@@ -82,7 +82,7 @@ def scipy_expm_solver(generator, t_span, y0, max_dt, t_eval=None, magnus_order: 
 def _select_expm(expm_method: str, expm_order: int, expm_squarings: int):
     """Pick the expm kernel: 'pade' = jax.scipy (norm-adaptive, branching),
     'taylor' = branch-free fixed-order scaling-and-squaring (ops/expm.py) —
-    the fast TPU path for fixed-step solvers whose step norm is bounded."""
+    the fast path for fixed-step solvers whose step norm is bounded."""
     if expm_method == "taylor":
         return lambda a: expm_taylor(a, order=expm_order, squarings=expm_squarings)
     if expm_method == "pade":
@@ -280,13 +280,13 @@ def fixed_step_lmde_solver_parallel_template_jax(
     """Parallel fixed-step LMDE template.
 
     Computes every per-step propagator batched via ``vmap`` (one batched expm /
-    matmul chain saturating the MXU) and composes them with a log-depth
+    matmul chain) and composes them with a log-depth
     ``associative_scan`` (reverse matmul).
     """
     if jax.default_backend() == "cpu":
         warn(
             "Parallel solvers will likely run slower on CPUs than non-parallel solvers. "
-            "To make use of their capabilities use a TPU/GPU.",
+            "To make use of their capabilities use a GPU.",
             stacklevel=2,
         )
 

@@ -19,13 +19,12 @@ density matrix with :math:`O(1/\sqrt{N})` statistical error — at
 :math:`O(N\, n)` state memory instead of :math:`O(n^2)`, and embarrassingly
 parallel.
 
-TPU-first design (nothing like the host-loop trajectory solvers in CPU
-libraries):
+Design (nothing like the host-loop trajectory solvers in CPU libraries):
 
 - **Trajectories ride the lanes.** The state is one ``(dim, n_traj)``
   array. All trajectories share the same signals, hence the same effective
   propagator: each step is ONE small ``expm`` (:func:`.ops.expm.expm_taylor`,
-  Paterson-Stockmeyer) plus ONE ``(n, n) @ (n, B)`` MXU matmul — per-step
+  Paterson-Stockmeyer) plus ONE ``(n, n) @ (n, B)`` matmul — per-step
   cost is independent of the trajectory count until the matmul saturates.
 - **No data-dependent control flow.** Jumps are per-lane ``where`` selects:
   every step computes all ``K`` jump candidates with one
@@ -51,8 +50,8 @@ propagator's linear fraction :math:`c + \theta\,(Uc - c)`,
 :math:`\theta = (t_{i+1}-\tau^*)/dt`. Every correction is :math:`O(dt^2)`
 local on events of probability :math:`O(\gamma\,dt)`, so the weak error is
 :math:`O(dt^2)` overall — vs :math:`O(\gamma\,dt)` for the standard
-jump-at-step-boundary discretization (kept as ``jump_placement="end"``;
-measured bias ladder in BENCHMARKS.md). All control flow stays per-lane
+jump-at-step-boundary discretization (kept as ``jump_placement="end"``).
+All control flow stays per-lane
 ``where`` selects — the lockstep lane layout is unchanged, and the only
 extra device work is one shared matvec per step. Multiple crossings within
 one step resolve one step late (an :math:`O((\gamma dt)^2)`-probability
@@ -410,8 +409,6 @@ def solve_mc_trajectories_sweep(
     n_save: int = 10,
     expm_order: int = 12,
     expm_squarings: int = 4,
-    tile_b: int = 512,
-    interpret: bool = False,
     mesh=None,
     jump_placement: str = "interp",
     thresholds=None,
@@ -420,11 +417,10 @@ def solve_mc_trajectories_sweep(
     repo's sweep-solver family (``fused_sweep_solve``, perturbative
     ``solve_sweep``, ...).
 
-    TPU-first structure: rather than vmapping the single-member solver
-    (which would re-exponentiate small per-member matrices every step in a
-    padded batched layout), ALL ``n_steps x n_members`` effective-generator
-    exponentials are computed up front in ONE batch-on-lanes Pallas call
-    (:func:`.ops.batched_linalg.expm_taylor_bol`), and the stochastic
+    Structure: rather than vmapping the single-member solver (which would
+    re-exponentiate small per-member matrices every step), ALL ``n_steps x
+    n_members`` effective-generator exponentials are computed up front in
+    ONE batched Taylor expm (:func:`.ops.expm.expm_taylor`), and the stochastic
     evolution is one lockstep ``lax.scan`` over steps with member-batched
     ``(M, n, n) @ (M, n, B)`` propagator applies and per-(member, lane)
     jump selects.
@@ -442,8 +438,6 @@ def solve_mc_trajectories_sweep(
         n_traj: trajectories PER member.
         key, n_steps, n_save, expm_order, expm_squarings: as in
             :func:`solve_mc_trajectories`.
-        tile_b: lane tile of the propagator-precompute Pallas kernel.
-        interpret: run the Pallas kernel in interpreter mode (CPU tests).
         mesh: optional mesh with a ``"data"`` axis — members are sharded
             across it (embarrassingly parallel).
         jump_placement: ``"interp"`` (second-order, default) or ``"end"``
@@ -457,7 +451,7 @@ def solve_mc_trajectories_sweep(
         ``density (n_save+1, M, dim, dim)``, ``jump_counts (M, n_traj)``.
     """
     from .solver_utils import is_lindblad_model_not_vectorized
-    from ..ops.batched_linalg import expm_taylor_bol
+    from ..ops.expm import expm_taylor
 
     if not is_lindblad_model_not_vectorized(model):
         raise DynamicsError(
@@ -551,7 +545,7 @@ def solve_mc_trajectories_sweep(
 
         gammas_mid = jax.vmap(rates_mid)(params)  # (M, T, K)
 
-    # ---- precompute ALL (T, M) step propagators in one bol expm call ------
+    # ---- precompute ALL (T, M) step propagators in one batched expm -------
     def drift_at(m_vals_t):
         if has_ham:
             return -1j * jnp.asarray(coll.evaluate_hamiltonian(m_vals_t))
@@ -567,23 +561,9 @@ def solve_mc_trajectories_sweep(
         P = jnp.exp((d[None, :] - d[:, None])[None, :, :] * t_mid[:, None, None])
         A = A * P[None]  # (M, T, n, n)
 
-    A = jnp.swapaxes(A, 0, 1).reshape(n_steps * n_members, dim, dim) * dt
-    L_lanes = n_steps * n_members
-    pad = (-L_lanes) % tile_b
-    if pad:
-        A = jnp.concatenate([A, jnp.zeros((pad, dim, dim), dtype=A.dtype)])
-    real_dtype = jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
-    Ur, Ui = expm_taylor_bol(
-        jnp.moveaxis(jnp.real(A), 0, -1).astype(real_dtype),
-        jnp.moveaxis(jnp.imag(A), 0, -1).astype(real_dtype),
-        expm_order,
-        expm_squarings,
-        interpret,
-        tile_b,
-    )
-    U = jnp.moveaxis(Ur + 1j * Ui, -1, 0)[:L_lanes].reshape(
-        n_steps, n_members, dim, dim
-    )
+    U = expm_taylor(
+        jnp.swapaxes(A, 0, 1) * dt, order=expm_order, squarings=expm_squarings
+    )  # (T, M, n, n)
 
     phase_end = None if d is None else jnp.exp(d[None, :] * t_end[:, None])  # (T, n)
 

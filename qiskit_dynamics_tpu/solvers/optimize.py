@@ -3,23 +3,23 @@ r"""Gradient-based pulse/control optimization (GRAPE-style).
 Capability beyond the reference: qiskit-dynamics documents "optimize through
 your simulation with JAX" as a workflow (ref ``README.md:18-21``, userguide
 JAX how-to) but ships no optimization API — every user writes the same
-optax loop by hand. This module packages that loop TPU-first:
+optax loop by hand. This module packages that loop as one device program:
 
 - :func:`optimize_controls`: a compiled fixed-step optimizer drive
   (``lax.scan`` over optimizer steps — ONE executable for the whole
   optimization, no per-step dispatch) with **batched multi-start**: the
   restart axis rides the same differentiable batch machinery as parameter
   sweeps (``vmap`` over the loss; elementwise optax transforms then update
-  every restart independently inside one device program). On TPU a
-  512-restart GRAPE run costs one fused sweep per step, not 512 loops.
+  every restart independently inside one device program). A 512-restart
+  GRAPE run costs one fused sweep per step, not 512 loops.
 - :func:`state_infidelity` / :func:`unitary_infidelity`: the standard
   phase-invariant objectives, batch-aware.
 
 The loss function is arbitrary jax-differentiable code — typically a
 :class:`~qiskit_dynamics_tpu.Solver` solve (``method="tpu_dopri5"``), a
-:func:`~qiskit_dynamics_tpu.solvers.fused_sweep_solve` call (its custom
-VJP makes the fused kernels the fastest gradient path, BENCHMARKS.md
-"Differentiable sweeps"), or a perturbative solver step.
+:func:`~qiskit_dynamics_tpu.solvers.fused_sweep_solve` call (batched
+reverse-mode AD through one scan: the fastest gradient path), or a perturbative
+solver step.
 
 Notes:
     Multi-start correctness relies on the optimizer transform being

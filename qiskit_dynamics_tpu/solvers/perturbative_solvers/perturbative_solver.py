@@ -164,8 +164,6 @@ class _PerturbativeSolver(ABC):
         y0,
         signals_fn: Callable,
         params,
-        tile_b: int = 512,
-        interpret: bool = False,
         mesh=None,
         expm_squarings: int = 1,
         precision: str = "f32",
@@ -173,15 +171,15 @@ class _PerturbativeSolver(ABC):
         df_chunk_b: int = 2048,
         df_devices=None,
     ):
-        """Batched parameter-sweep solve through the streamed chain kernel.
+        """Batched parameter-sweep solve through one propagator chain.
 
-        TPU fast path with no reference counterpart: evaluates the expansion
-        polynomial for EVERY (step, sweep member) with one tensordot (MXU) —
-        for Magnus additionally exponentiating every step with the
-        batch-on-lanes Taylor ``expm`` kernel — then applies the per-lane
-        propagator chains with the streamed Pallas kernel
-        (:func:`~qiskit_dynamics_tpu.ops.chain_apply.chain_apply_bol`): state
-        resident in VMEM, propagators double-buffered from HBM.
+        Fast path with no reference counterpart: evaluates the expansion
+        polynomial for EVERY (step, sweep member) with one tensordot — for
+        Magnus additionally exponentiating every step with the batched
+        Taylor :func:`~qiskit_dynamics_tpu.ops.expm.expm_taylor` — then
+        applies the per-member propagator chains with one ``lax.scan``
+        (:func:`~qiskit_dynamics_tpu.ops.chain_apply.chain_apply`).
+        Differentiable end to end by plain autodiff.
 
         Args:
             t0: shared initial time.
@@ -189,20 +187,17 @@ class _PerturbativeSolver(ABC):
             y0: shared initial state, shape (dim,).
             signals_fn: maps one parameter pytree -> signal list.
             params: batched parameters (dim 0 = sweep axis).
-            tile_b: Pallas lane-tile size.
-            interpret: interpreter mode for CPU tests.
             mesh: optional ``jax.sharding.Mesh`` — shard the sweep batch over
                 the mesh's ``"data"`` axis (``parallel.pshard_batch``): each
-                chip evaluates the expansion polynomial and runs the streamed
-                chain kernel on its shard; batches pad to a multiple of the
-                axis size (trimmed on return).
+                device evaluates the expansion polynomial and runs the chain
+                on its shard; batches pad to a multiple of the axis size
+                (trimmed on return).
             expm_squarings: (Magnus only) scaling-and-squaring count of the
                 per-step Taylor-12 ``expm``. In the Dysolve regime the Magnus
                 polynomial norm is well below 1, so Taylor-12 converges
-                unscaled and every squaring only AMPLIFIES f32 rounding —
-                measured on chip (dim-10 transmon, 1000 steps): 3.4e-6 at 0,
-                5.7e-6 at 1 (default: 2x convergence-radius margin), 1.3e-5
-                at 2, 1.2e-4 at 4. Raise it only for ``||Omega * dt|| > 1``.
+                unscaled and every squaring only AMPLIFIES f32 rounding (the
+                default 1 keeps a 2x convergence-radius margin). Raise it
+                only for ``||Omega * dt|| > 1``.
             precision: ``"f32"`` (default, fastest — accuracy floors at the
                 ~3e-6 f32 chain-arithmetic level) or ``"df32"``: the SAME
                 truncated expansion in compensated double-float32 with
@@ -212,10 +207,10 @@ class _PerturbativeSolver(ABC):
                 envelopes; not jit/grad-traceable) and returns a host numpy
                 array. See :func:`~qiskit_dynamics_tpu.ops.df_chain.dysolve_sweep_df`.
             df_order: (df32 only) highest expansion order kept in df32
-                arithmetic; higher orders ride the f32 MXU tail.
+                arithmetic; higher orders ride the f32 tail.
             df_chunk_b: (df32 only) member-chunk width per device dispatch.
             df_devices: (df32 only) optional list of ``jax.Device`` — chunk
-                dispatches round-robin across them (host-fed multi-chip
+                dispatches round-robin across them (host-fed multi-device
                 data parallelism, as in the df32 sweep engine).
 
         Returns:
@@ -228,7 +223,7 @@ class _PerturbativeSolver(ABC):
             if mesh is not None:
                 raise DynamicsError(
                     "precision='df32' is host-orchestrated: pass "
-                    "df_devices=jax.devices() for multi-chip round-robin "
+                    "df_devices=jax.devices() for multi-device round-robin "
                     "instead of mesh=."
                 )
             return dysolve_sweep_df(
@@ -238,15 +233,15 @@ class _PerturbativeSolver(ABC):
         if precision != "f32":
             raise DynamicsError(f"Unknown precision {precision!r} (use 'f32' or 'df32').")
 
-        from ...ops.chain_apply import chain_apply_bol_ad
+        from ...ops.chain_apply import chain_apply
+        from ...ops.expm import expm_taylor
 
         if mesh is not None:
             from ...parallel.sweep import pshard_batch
 
             def _local(p):
                 return self.solve_sweep(
-                    t0, n_steps, y0, signals_fn, p, tile_b=tile_b,
-                    interpret=interpret, mesh=None,
+                    t0, n_steps, y0, signals_fn, p, mesh=None,
                     expm_squarings=expm_squarings,
                 )
 
@@ -261,56 +256,30 @@ class _PerturbativeSolver(ABC):
 
         coeffs = jax.vmap(coeffs_for)(params)          # (B, n_vars, T)
         coeffs = jnp.moveaxis(coeffs, 0, -1)           # (n_vars, T, B)
-
-        B = coeffs.shape[-1]
-        pad = (-B) % tile_b
-        if pad:
-            filler = jnp.broadcast_to(coeffs[..., :1], coeffs.shape[:-1] + (pad,))
-            coeffs = jnp.concatenate([coeffs, filler], axis=-1)
-
-        monomials = poly.compute_monomials(coeffs)      # (M, T, B+pad)
+        monomials = poly.compute_monomials(coeffs)      # (M, T, B)
         props = jnp.tensordot(
-            jnp.asarray(poly.array_coefficients), monomials, axes=(0, 0)
-        )                                               # (n, n, T, B+pad)
+            monomials, jnp.asarray(poly.array_coefficients), axes=(0, 0)
+        )                                               # (T, B, n, n)
         if poly.constant_term is not None:
-            props = props + jnp.asarray(poly.constant_term)[:, :, None, None]
+            props = props + jnp.asarray(poly.constant_term)
 
         if model.expansion_method == "magnus":
-            # per-step propagator = Udt @ expm(polynomial), exponentiated with
-            # the batch-on-lanes Taylor kernel over the flattened (T*B) lanes
-            # (the _ad variant: Pallas primal, chunked XLA-twin adjoint)
-            from ...ops.batched_linalg import expm_taylor_bol_ad
-
-            T_steps = props.shape[2]
-            lanes = props.reshape(dim, dim, T_steps * props.shape[3])
-            real_dtype = jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
-            # positional args: custom_vjp nondiff_argnums are positional-only
-            exp_r, exp_i = expm_taylor_bol_ad(
-                jnp.real(lanes).astype(real_dtype),
-                jnp.imag(lanes).astype(real_dtype),
-                12,       # order
-                expm_squarings,
-                interpret,
-                tile_b,
+            # per-step propagator = Udt @ expm(polynomial), one batched
+            # Taylor expm over every (step, member)
+            props = jnp.asarray(model.Udt) @ expm_taylor(
+                props, order=12, squarings=expm_squarings
             )
-            expd = (exp_r + 1j * exp_i).reshape(dim, dim, T_steps, props.shape[3])
-            props = jnp.einsum("im,mntb->intb", jnp.asarray(model.Udt), expd)
-
-        props = jnp.moveaxis(props, 2, 0)               # (T, n, n, B+pad)
 
         U0 = model.rotating_frame.state_out_of_frame(t0, np.eye(dim, dtype=complex))
         Uf = model.rotating_frame.state_into_frame(
             t0 + n_steps * model.dt, np.eye(dim, dtype=complex)
         )
-        y0_cols = jnp.broadcast_to(
-            (jnp.asarray(U0) @ jnp.asarray(y0, dtype=complex))[:, None],
-            (dim, B + pad),
+        B = props.shape[1]
+        y0_b = jnp.broadcast_to(
+            jnp.asarray(U0) @ jnp.asarray(y0, dtype=complex), (B, dim)
         )
-        # custom-vjp chain application: both Dyson and Magnus solve_sweep are
-        # differentiable end-to-end (Magnus's per-step Pallas expm carries a
-        # chunked XLA-twin adjoint — ops.batched_linalg.expm_taylor_bol_ad)
-        yf = chain_apply_bol_ad(props, y0_cols, tile_b, interpret)[:, :B]
-        return (jnp.asarray(Uf) @ yf).T
+        yf = chain_apply(props, y0_b)                   # (B, dim)
+        return yf @ jnp.asarray(Uf).T
 
 
 class DysonSolver(_PerturbativeSolver):

@@ -9,7 +9,7 @@ ODE methods (``dy/dt = f(t, y)``):
 - fixed-step: ``RK4`` (host), ``jax_RK4``
 - adaptive under jit: ``jax_odeint`` (jax.experimental.ode bridge),
   ``tpu_dopri5`` / ``tpu_dop853`` (native bounded-scan steppers — the
-  TPU-first default; ``jax_dopri5``/``jax_dop853`` are accepted aliases)
+  default; ``jax_dopri5``/``jax_dop853`` are accepted aliases)
 
 LMDE methods (``dy/dt = G(t) y``):
 - ``scipy_expm``, ``jax_expm`` (fixed-step Magnus 1/2/3 exponential)
@@ -111,7 +111,7 @@ def _lanczos_validation(rhs, t_span, y0, k_dim):
 
 
 def _validate_not_scipy_sparse_under_jax(method, model):
-    """jax/tpu methods trace the model; scipy-sparse evaluation cannot run
+    """``jax_*``/``tpu_*``/``fused_*`` methods trace the model; scipy-sparse evaluation cannot run
     under a tracer — fail loudly instead of leaking a TracerArrayConversionError
     (use ``array_library="jax_sparse"`` for sparse evaluation under jax)."""
     if (

@@ -12,7 +12,7 @@ few dozen solved nodes reconstruct tens of thousands of sweep points to
 This module exploits that: solve the model at ``M`` Chebyshev-Lobatto nodes
 with a HIGH-PRECISION inner solver (default: the compensated double-float32
 fixed-step engine, ``fused_sweep_solve(precision="df32")`` — ~1e-9 per-point
-on TPU), then evaluate the interpolant at all ``B`` sweep points with one
+in float32 arithmetic), then evaluate the interpolant at all ``B`` sweep points with one
 host-f64 matmul. Refinement is adaptive and CERTIFIED a posteriori: Lobatto
 node sets nest under doubling (``cos(j pi / N)`` for ``N -> 2N`` keeps every
 old node), so each refinement level solves only the new (odd-index) nodes and
@@ -130,7 +130,7 @@ def interpolated_sweep_solve(
             non-smooth ``signals_fn`` must fail loudly).
         node_solver: optional callable ``(node_params,) -> (M, ...)`` states
             used to solve the nodes. Default: ``fused_sweep_solve`` with
-            ``precision="df32"`` (1e-9-class on TPU) and ``solver_kwargs``
+            ``precision="df32"`` (1e-9-class) and ``solver_kwargs``
             forwarded (e.g. ``max_dt``; ``precision="f32"`` picks the fast
             low-precision engine).
         full_output: also return a :class:`SweepInterpolationInfo`.

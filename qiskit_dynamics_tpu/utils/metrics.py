@@ -4,7 +4,7 @@ The reference has no tracing/profiling or metrics (SURVEY.md §5). This module
 adds both as new infrastructure:
 
 - :func:`solve_span` wraps each solve phase in a
-  ``jax.profiler.TraceAnnotation`` named scope (visible in TPU profiler
+  ``jax.profiler.TraceAnnotation`` named scope (visible in profiler
   traces) and records wall time.
 - :func:`enable_metrics` / :func:`solve_metrics` expose a process-local
   registry of recent solve statistics (method, wall time, integrator stats

@@ -423,7 +423,7 @@ class TestThreeTransmonConfig:
 
     def test_schedule_batch_fused_path(self):
         """solver_options={'method': 'fused_dopri5'}: the whole schedule batch
-        runs in ONE fused adaptive kernel call (TPU serving path)."""
+        runs in ONE fused adaptive engine call (the serving path)."""
         from qiskit_dynamics_tpu.benchmarks import (
             gaussian_amp_schedules,
             three_transmon_backend,
@@ -440,14 +440,14 @@ class TestThreeTransmonConfig:
         )
         res_fused = backend.solve(scheds)
         for rf, rr in zip(res_fused, res_ref):
-            # measured ~2.6e-5 (f32 kernel); the backend's DEFAULT path is
-            # ~7e-4 from the same tight reference
+            # the f32 lockstep engine sits well inside 1e-4 of the tight
+            # reference; the backend's DEFAULT path is ~7e-4 from it
             np.testing.assert_allclose(
                 np.asarray(rf.y[-1]), np.asarray(rr.y[-1]), atol=1e-4
             )
 
     def test_run_counts_fused_path(self):
-        """backend.run -> counts through the fused kernel matches physics."""
+        """backend.run -> counts through the fused engine matches physics."""
         from qiskit_dynamics_tpu.benchmarks import (
             gaussian_amp_schedules,
             three_transmon_backend,

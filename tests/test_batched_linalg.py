@@ -1,99 +1,70 @@
-"""Tests for the batch-on-lanes Pallas kernels (interpret mode on CPU)."""
+"""Tests for the sweep engines: batched Taylor expm, the fixed-step XLA
+engine, and the lockstep-adaptive Triton kernel (interpret mode on CPU)
+against its XLA twin."""
 import numpy as np
 import pytest
 import jax
 import jax.numpy as jnp
 from scipy.linalg import expm as scipy_expm
 
-from qiskit_dynamics_tpu.ops.batched_linalg import (
-    matmul_bol,
-    expm_taylor_bol,
-    to_bol,
-    from_bol,
-)
+from qiskit_dynamics_tpu.ops.expm import expm_taylor
 
 
 def _random_batch(rng, B, n, scale=1.0):
     return scale * (
         rng.standard_normal((B, n, n)) + 1j * rng.standard_normal((B, n, n))
-    ).astype(np.complex64)
+    )
 
 
-class TestMatmulBol:
-    def test_matches_einsum(self):
-        rng = np.random.default_rng(0)
-        B, n = 128, 8
-        A = _random_batch(rng, B, n)
-        Bm = _random_batch(rng, B, n)
-        Ar, Ai = to_bol(jnp.asarray(A))
-        Br, Bi = to_bol(jnp.asarray(Bm))
-        Cr, Ci = matmul_bol(Ar, Ai, Br, Bi, interpret=True, tile_b=128)
-        C = np.asarray(from_bol(Cr, Ci))
-        expected = A @ Bm
-        np.testing.assert_allclose(C, expected, atol=1e-4, rtol=1e-4)
+def _magnus2_reference(H0, ops, omega, coef, y0, dt, t0, T, order=10):
+    """float64 numpy Magnus-2 + Horner-Taylor sweep (the engines' polynomial)."""
+    from qiskit_dynamics_tpu.ops.xla_sweep import _GAUSS_C1, _GAUSS_C2, _P2
 
-    def test_roundtrip_layout(self):
-        rng = np.random.default_rng(1)
-        A = _random_batch(rng, 8, 4)
-        Ar, Ai = to_bol(jnp.asarray(A))
-        np.testing.assert_allclose(np.asarray(from_bol(Ar, Ai)), A, atol=1e-7)
+    y = y0.astype(complex)
+    for s in range(T):
+        Gs = []
+        for gi, c in enumerate((_GAUSS_C1, _GAUSS_C2)):
+            tau = t0 + (s + c) * dt
+            A = H0 + np.einsum("kb,kij->bij", coef[s, gi], ops)
+            Gs.append(A * np.exp(1j * omega * tau)[None])
+        G1, G2 = Gs
+        M = 0.5 * dt * (G1 + G2) + _P2 * dt * dt * (G2 @ G1 - G1 @ G2)
+        v = y.copy()
+        for kk in range(order, 0, -1):
+            v = y + np.einsum("bij,jb->ib", M, v) / kk
+        y = v
+    return y
 
 
-class TestExpmBol:
-    def test_matches_scipy(self):
-        rng = np.random.default_rng(2)
-        B, n = 128, 8
-        X = _random_batch(rng, B, n, scale=0.2)
-        Xr, Xi = to_bol(jnp.asarray(X))
-        Pr, Pi = expm_taylor_bol(Xr, Xi, order=10, squarings=1, interpret=True, tile_b=128)
-        P = np.asarray(from_bol(Pr, Pi))
-        expected = np.stack([scipy_expm(x.astype(np.complex128)) for x in X])
-        np.testing.assert_allclose(P, expected, atol=2e-5, rtol=2e-4)
+class TestExpmTaylorBatched:
+    """Batch-major Taylor expm (the per-step propagators of the Magnus and
+    Monte-Carlo sweeps): XLA hands the batched products to its GEMM
+    library."""
+
+    @pytest.mark.parametrize("n", [1, 2, 5, 8, 16])
+    @pytest.mark.parametrize("squarings", [0, 1, 2])
+    def test_matches_scipy(self, n, squarings):
+        rng = np.random.default_rng(10 * n + squarings)
+        # spectral norm ~0.4 at every n: Taylor-12 truncation ~1e-15
+        X = _random_batch(rng, 6, n, scale=0.3 / np.sqrt(n))
+        P = np.asarray(expm_taylor(jnp.asarray(X), order=12, squarings=squarings))
+        expected = np.stack([scipy_expm(x) for x in X])
+        np.testing.assert_allclose(P, expected, atol=1e-12, rtol=1e-12)
 
     def test_identity_at_zero(self):
-        n, B = 4, 128
-        Xr = jnp.zeros((n, n, B), dtype=jnp.float32)
-        Pr, Pi = expm_taylor_bol(Xr, Xr, order=6, squarings=0, interpret=True, tile_b=128)
-        P = np.asarray(from_bol(Pr, Pi))
-        np.testing.assert_allclose(P, np.broadcast_to(np.eye(n), (B, n, n)), atol=1e-6)
+        P = np.asarray(expm_taylor(jnp.zeros((3, 4, 4), jnp.complex128), order=6))
+        np.testing.assert_allclose(P, np.broadcast_to(np.eye(4), (3, 4, 4)), atol=1e-15)
 
-    def test_bwd_kernel_matches_xla_twin_oracle(self):
-        """The Pallas backward (stage-resident reverse sweep) equals jax.vjp
-        through the XLA re-evaluation of the identical recursion, to
-        machine precision, across squarings counts."""
-        from qiskit_dynamics_tpu.ops.batched_linalg import (
-            expm_taylor_bol_bwd,
-            _xla_twin_vjp,
-        )
-
-        rng = np.random.default_rng(3)
-        n, L, order = 5, 16, 8
-        for squarings in (0, 1, 3):
-            Xr = jnp.asarray(rng.normal(size=(n, n, L)) * 0.3)
-            Xi = jnp.asarray(rng.normal(size=(n, n, L)) * 0.3)
-            CTr = jnp.asarray(rng.normal(size=(n, n, L)))
-            CTi = jnp.asarray(rng.normal(size=(n, n, L)))
-            g_ref = _xla_twin_vjp(Xr, Xi, CTr, CTi, order, squarings)
-            g_pl = expm_taylor_bol_bwd(
-                Xr, Xi, CTr, CTi, order, squarings, interpret=True, tile_b=16
-            )
-            np.testing.assert_allclose(np.asarray(g_ref[0]), np.asarray(g_pl[0]), atol=1e-12)
-            np.testing.assert_allclose(np.asarray(g_ref[1]), np.asarray(g_pl[1]), atol=1e-12)
-
-    def test_ad_wrapper_grad_matches_fd(self):
-        """jax.grad through expm_taylor_bol_ad (Pallas fwd + Pallas bwd)
-        checked against central finite differences on a scalar loss."""
-        from qiskit_dynamics_tpu.ops.batched_linalg import expm_taylor_bol_ad
-
+    def test_grad_matches_fd(self):
+        """Plain autodiff through the batched polynomial (the Magnus sweep's
+        gradient path) against central finite differences."""
         rng = np.random.default_rng(4)
-        n, L = 3, 8
-        X0r = jnp.asarray(rng.normal(size=(n, n, L)) * 0.2)
-        X0i = jnp.asarray(rng.normal(size=(n, n, L)) * 0.2)
-        D = jnp.asarray(rng.normal(size=(n, n, L)))
+        X0 = jnp.asarray(_random_batch(rng, 4, 3, scale=0.2))
+        D = jnp.asarray(rng.normal(size=(4, 3, 3)))
 
         def loss(a):
-            pr, pi = expm_taylor_bol_ad(X0r * a, X0i * a, 8, 1, True, 8)
-            return jnp.sum(pr * D) + jnp.sum(pi * D**2)
+            P = expm_taylor(X0 * a, order=8, squarings=1)
+            return jnp.sum(jnp.real(P) * D) + jnp.sum(jnp.imag(P) * D**2)
 
         g = float(jax.grad(loss)(0.7))
         eps = 1e-6
@@ -112,7 +83,7 @@ class TestFusedSweepSolver:
         y0[0] = 1.0
         amps = jnp.array([0.3, 0.75, 1.0])
         T, dt = 2.0, 0.5
-        out = fused_cr_sweep(solver, w1, amps, t_final=T, dt=dt, tile_b=128, interpret=True)
+        out = fused_cr_sweep(solver, w1, amps, t_final=T, dt=dt)
 
         def ref(amp):
             sig = Signal(lambda t: amp * 0.02, carrier_freq=w1)
@@ -129,7 +100,7 @@ class TestFusedSweepSolver:
     def test_hermitian_kernel_path_matches_general(self):
         # anti-Hermitian generators: the one-matmul commutator path
         # (hermitian=True) must agree with the two-matmul general path
-        from qiskit_dynamics_tpu.ops.sweep_solver import sweep_expm_magnus2
+        from qiskit_dynamics_tpu.ops.xla_sweep import sweep_expm_magnus2_xla
 
         rng = np.random.default_rng(1)
         n, k, T, B = 6, 2, 15, 8
@@ -143,14 +114,13 @@ class TestFusedSweepSolver:
         omega = w[None, :] - w[:, None]
         coef = rng.normal(size=(T, 2, k, B))
         y0 = rng.normal(size=(n, B)) + 1j * rng.normal(size=(n, B))
-        kw = dict(dt=dt, t0=t0, order=10, tile_b=B, interpret=True)
-        a = sweep_expm_magnus2(H0, ops, omega, coef, y0, hermitian=False, **kw)
-        b = sweep_expm_magnus2(H0, ops, omega, coef, y0, hermitian=True, **kw)
+        kw = dict(dt=dt, t0=t0, order=10)
+        a = sweep_expm_magnus2_xla(H0, ops, omega, coef, y0, hermitian=False, **kw)
+        b = sweep_expm_magnus2_xla(H0, ops, omega, coef, y0, hermitian=True, **kw)
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-12)
 
-    def test_xla_engine_matches_pallas_kernel(self):
-        # batch-major XLA engine (large-dim path): identical polynomial
-        from qiskit_dynamics_tpu.ops.sweep_solver import sweep_expm_magnus2
+    def test_xla_engine_matches_numpy_magnus2(self):
+        # batch-major XLA engine: the float64 numpy polynomial, step for step
         from qiskit_dynamics_tpu.ops.xla_sweep import sweep_expm_magnus2_xla
 
         rng = np.random.default_rng(5)
@@ -161,17 +131,13 @@ class TestFusedSweepSolver:
         omega = w[None, :] - w[:, None]
         coef = rng.normal(size=(T, 2, k, B))
         y0 = rng.normal(size=(n, B)) + 1j * rng.normal(size=(n, B))
-        a = sweep_expm_magnus2(
-            H0, ops, omega, coef, y0, dt=0.04, t0=0.1, order=10, tile_b=B,
-            interpret=True,
-        )
+        a = _magnus2_reference(H0, ops, omega, coef, y0, 0.04, 0.1, T)
         b = sweep_expm_magnus2_xla(H0, ops, omega, coef, y0, dt=0.04, t0=0.1, order=10)
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-13)
 
     def test_xla_engine_large_dim_lindblad(self):
-        # dim-8 open system -> solve_dim 64: auto-selects the xla engine
-        # (the pallas kernel's unrolled loops are a compile hazard there);
-        # cross-check against the generic adaptive solver
+        # dim-8 open system -> solve_dim 64 on the xla engine; cross-check
+        # against the generic adaptive solver
         import jax
         from qiskit_dynamics_tpu.models import LindbladModel
         from qiskit_dynamics_tpu import Signal, Solver
@@ -218,7 +184,7 @@ class TestFusedSweepSolver:
             )
 
     def test_fused_sweep_gradient_matches_finite_differences(self):
-        # custom-vjp path: Pallas primal, XLA-engine adjoint (ops/sweep_ad.py)
+        # plain reverse-mode AD through the XLA engine's checkpointed scan
         import jax
         from qiskit_dynamics_tpu.benchmarks import cr_solver
         from qiskit_dynamics_tpu.solvers import fused_sweep_solve
@@ -235,8 +201,7 @@ class TestFusedSweepSolver:
         def loss(amps):
             yf = fused_sweep_solve(
                 solver.model, signals_fn, amps, t_span=(0.0, T), max_dt=0.5,
-                y0=y0, tile_b=8, interpret=True,
-                rwa_signal_map=solver._rwa_signal_map,
+                y0=y0, rwa_signal_map=solver._rwa_signal_map,
             )
             return jnp.mean(jnp.abs(yf[:, 1]) ** 2)
 
@@ -273,9 +238,7 @@ class TestFusedSweepSolver:
             t_span=(0.0, T), max_dt=dtmax, y0=y0,
             rwa_signal_map=solver._rwa_signal_map, t_eval=t_eval,
         )
-        traj = fused_sweep_solve(
-            solver.model, signals_fn, amps, tile_b=4, interpret=True, **kw
-        )
+        traj = fused_sweep_solve(solver.model, signals_fn, amps, **kw)
         traj_x = fused_sweep_solve(
             solver.model, signals_fn, amps, sweep_engine="xla", **kw
         )
@@ -299,20 +262,20 @@ class TestFusedSweepSolver:
         # off-grid and decreasing t_eval rejected
         with pytest.raises(DynamicsError, match="grid"):
             fused_sweep_solve(
-                solver.model, signals_fn, amps, tile_b=4, interpret=True,
+                solver.model, signals_fn, amps,
                 t_span=(0.0, T), max_dt=dtmax, y0=y0,
                 rwa_signal_map=solver._rwa_signal_map, t_eval=[0.3],
             )
         with pytest.raises(DynamicsError, match="increasing"):
             fused_sweep_solve(
-                solver.model, signals_fn, amps, tile_b=4, interpret=True,
+                solver.model, signals_fn, amps,
                 t_span=(0.0, T), max_dt=dtmax, y0=y0,
                 rwa_signal_map=solver._rwa_signal_map, t_eval=[1.0, 0.5],
             )
 
     def test_unitary_sweep_engines_agree_and_dup_teval_rejected(self):
-        # review fixes: batch-major (B, n, m) xla path for matrix y0 (shared
-        # generator per member), and duplicate-step t_eval rejection
+        # batch-major (B, n, m) matrix y0 (shared generator per member) on
+        # both engines, and duplicate-step t_eval rejection
         from qiskit_dynamics_tpu.benchmarks import cr_solver
         from qiskit_dynamics_tpu.solvers import fused_sweep_solve
         from qiskit_dynamics_tpu import Signal
@@ -331,7 +294,7 @@ class TestFusedSweepSolver:
             rwa_signal_map=solver._rwa_signal_map,
         )
         a = fused_sweep_solve(
-            solver.model, signals_fn, amps, tile_b=12, interpret=True, **kw
+            solver.model, signals_fn, amps, sweep_engine="poly", **kw
         )
         b = fused_sweep_solve(
             solver.model, signals_fn, amps, sweep_engine="xla", **kw
@@ -340,7 +303,7 @@ class TestFusedSweepSolver:
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-13)
         t_eval = [0.5, 1.0, 2.0]
         at = fused_sweep_solve(
-            solver.model, signals_fn, amps, tile_b=12, interpret=True,
+            solver.model, signals_fn, amps, sweep_engine="poly",
             t_eval=t_eval, **kw,
         )
         bt = fused_sweep_solve(
@@ -350,7 +313,7 @@ class TestFusedSweepSolver:
         np.testing.assert_allclose(np.asarray(at), np.asarray(bt), atol=1e-13)
         with pytest.raises(DynamicsError, match="same fixed step"):
             fused_sweep_solve(
-                solver.model, signals_fn, amps, tile_b=12, interpret=True,
+                solver.model, signals_fn, amps,
                 t_eval=[0.5 - 1e-8, 0.5 + 1e-8], **kw,
             )
 
@@ -382,7 +345,7 @@ class TestFusedSweepSolver:
 
         traj = fused_sweep_solve(
             model, signals_fn, amps, t_span=(0.0, T), max_dt=dtmax, y0=rho0,
-            tile_b=2, interpret=True, t_eval=t_eval,
+            t_eval=t_eval,
         )
         assert traj.shape == (2, 2, 2, 2)
         solver = Solver(
@@ -427,12 +390,12 @@ class TestFusedSweepSolver:
 
         with pytest.raises(DynamicsError, match="t_span\\[1\\]"):
             fused_sweep_solve(model, ok_fn, jnp.array([0.1]), t_span=(0.0, -1.0),
-                              max_dt=0.5, y0=y0, interpret=True)
+                              max_dt=0.5, y0=y0)
         # signal count mismatch vs the RWA'd model's operator count
         with pytest.raises(DynamicsError, match="signals"):
             fused_sweep_solve(
                 model, ok_fn, jnp.array([0.1]), t_span=(0.0, 1.0),
-                max_dt=0.5, y0=y0, interpret=True,
+                max_dt=0.5, y0=y0,
             )
 
 
@@ -463,7 +426,7 @@ class TestLockstepAdaptiveSweep:
         from qiskit_dynamics_tpu import Signal
 
         solver, nu, (static_fb, ops_fb, omega) = self._setup()
-        B, T = 8, 10.0
+        B, T = 16, 10.0
         amps = np.linspace(0.2, 1.0, B)
         y0 = np.zeros((2, B), dtype=complex)
         y0[0] = 1.0
@@ -471,7 +434,7 @@ class TestLockstepAdaptiveSweep:
             jnp.asarray(static_fb), jnp.asarray(ops_fb), jnp.asarray(omega),
             jnp.asarray([2 * np.pi * nu]), jnp.asarray(amps[None, :], dtype=complex),
             jnp.asarray(y0), tf=T, atol=1e-8, rtol=1e-8, h0=0.01,
-            tile_b=8, interpret=True,
+            tile_b=16, interpret=True,
         )
         pop1 = np.abs(np.asarray(out))[1] ** 2
 
@@ -498,7 +461,7 @@ class TestLockstepAdaptiveSweep:
         amps = jnp.array([1.0, 0.05, 0.6, 0.2, 0.9, 0.1, 0.4, 0.75])
         sig_fn = lambda a: [Signal(lambda t: a * 0.02, carrier_freq=w1)]
         kwargs = dict(
-            t_span=(0.0, 2.0), y0=y0, tile_b=4, interpret=True,
+            t_span=(0.0, 2.0), y0=y0, tile_b=16, interpret=True,
             rwa_signal_map=solver._rwa_signal_map,
         )
         out_b = fused_adaptive_sweep_solve(solver.model, sig_fn, amps, **kwargs)
@@ -522,14 +485,14 @@ class TestLockstepAdaptiveSweep:
         from qiskit_dynamics_tpu.ops.adaptive_sweep import sweep_dopri5_lockstep
 
         _, nu, (static_fb, ops_fb, omega) = self._setup()
-        y0 = np.zeros((2, 8), dtype=complex)
+        y0 = np.zeros((2, 16), dtype=complex)
         y0[0] = 1.0
         out = sweep_dopri5_lockstep(
             jnp.asarray(static_fb), jnp.asarray(ops_fb), jnp.asarray(omega),
             jnp.asarray([2 * np.pi * nu]),
-            jnp.ones((1, 8), dtype=complex),
+            jnp.ones((1, 16), dtype=complex),
             jnp.asarray(y0), tf=10.0, atol=1e-8, rtol=1e-8, h0=0.01,
-            max_steps=3, tile_b=8, interpret=True,
+            max_steps=3, tile_b=16, interpret=True,
         )
         assert np.isnan(np.asarray(out)).all()
 
@@ -549,7 +512,7 @@ class TestFusedAdaptiveSweepSolve:
             solver.model,
             lambda a: [Signal(lambda t: a * 0.02, carrier_freq=w1)],
             amps, t_span=(0.0, T), y0=y0, atol=1e-9, rtol=1e-9, h0=0.01,
-            tile_b=128, interpret=True, rwa_signal_map=solver._rwa_signal_map,
+            tile_b=16, interpret=True, rwa_signal_map=solver._rwa_signal_map,
         )
         pops = np.abs(np.asarray(out)) ** 2
         for i, a in enumerate([0.3, 1.0]):
@@ -575,7 +538,7 @@ class TestFusedAdaptiveSweepSolve:
         fn = lambda a: [Signal(lambda t: a * 0.02, carrier_freq=w1)]
         U = fused_sweep_solve(
             solver.model, fn, amps, t_span=(0.0, T), max_dt=0.5,
-            y0=np.eye(dim, dtype=complex), tile_b=8, interpret=True,
+            y0=np.eye(dim, dtype=complex),
             rwa_signal_map=solver._rwa_signal_map,
         )
         assert U.shape == (2, dim, dim)
@@ -614,7 +577,7 @@ class TestFusedAdaptiveSweepSolve:
 
         out = fused_adaptive_sweep_solve(
             model, signals_fn, amps, t_span=(0.0, T), y0=y0, atol=1e-9, rtol=1e-9,
-            h0=0.005, tile_b=8, interpret=True,
+            h0=0.005, tile_b=16, interpret=True,
             rwa_signal_map=solver._rwa_signal_map, envelope_resolution=S,
         )
         pops = np.abs(np.asarray(out)) ** 2
@@ -655,7 +618,7 @@ class TestFusedAdaptiveSweepSolve:
 
         traj = fused_adaptive_sweep_solve(
             model, signals_fn, amps, t_span=(0.0, T), y0=y0, atol=1e-9,
-            rtol=1e-9, h0=0.005, tile_b=8, interpret=True,
+            rtol=1e-9, h0=0.005, tile_b=16, interpret=True,
             rwa_signal_map=solver._rwa_signal_map, envelope_resolution=S,
             t_eval=t_eval,
         )
@@ -677,7 +640,7 @@ class TestFusedAdaptiveSweepSolve:
             )
 
     def test_lindblad_vectorized_fused_sweep(self):
-        """Vectorized Lindblad sweeps through the fused kernel match the
+        """Vectorized Lindblad sweeps through the fused solve match the
         generic vectorized DOP853 solve."""
         from qiskit_dynamics_tpu.models import LindbladModel
         from qiskit_dynamics_tpu.solvers import fused_sweep_solve
@@ -703,7 +666,7 @@ class TestFusedAdaptiveSweepSolve:
         amps = jnp.array([0.4, 1.0])
         signals_fn = lambda a: ([Signal(lambda t: a, carrier_freq=nu)], None)
         out = fused_sweep_solve(model, signals_fn, amps, t_span=(0.0, T),
-                                max_dt=0.02, y0=rho0, tile_b=8, interpret=True)
+                                max_dt=0.02, y0=rho0)
         assert out.shape == (2, 2, 2)
         for i, a in enumerate([0.4, 1.0]):
             sig = Signal(lambda t, a=a: a, carrier_freq=nu)
@@ -728,13 +691,13 @@ class TestFusedAdaptiveSweepSolve:
             fused_adaptive_sweep_solve(
                 solver.model, lambda f: [Signal(lambda t: 0.02, carrier_freq=f)],
                 jnp.array([5.0, 5.2]), t_span=(0.0, 1.0), y0=y0,
-                tile_b=8, interpret=True, rwa_signal_map=solver._rwa_signal_map,
+                tile_b=16, interpret=True, rwa_signal_map=solver._rwa_signal_map,
             )
         with pytest.raises(DynamicsError, match="constant-envelope"):
             fused_adaptive_sweep_solve(
                 solver.model, lambda a: [Signal(lambda t: a * np.exp(-t), carrier_freq=w1)],
                 jnp.array([0.5, 1.0]), t_span=(0.0, 1.0), y0=y0,
-                tile_b=8, interpret=True, rwa_signal_map=solver._rwa_signal_map,
+                tile_b=16, interpret=True, rwa_signal_map=solver._rwa_signal_map,
             )
 
 
@@ -758,7 +721,7 @@ class TestAdaptiveTrajectories:
 
         t_eval = [0.0, 0.7, 1.3, 2.0]
         traj = fused_adaptive_sweep_solve(
-            solver.model, signals_fn, amps, t_span=(0.0, T), y0=y0, tile_b=4,
+            solver.model, signals_fn, amps, t_span=(0.0, T), y0=y0, tile_b=16,
             interpret=True, rwa_signal_map=solver._rwa_signal_map,
             t_eval=t_eval,
         )
@@ -790,7 +753,7 @@ class TestAdaptiveTrajectories:
             return [Signal(lambda t: amp * 0.02, carrier_freq=w1)]
 
         kw = dict(
-            t_span=(0.0, 2.0), y0=y0, tile_b=2, interpret=True,
+            t_span=(0.0, 2.0), y0=y0, tile_b=16, interpret=True,
             rwa_signal_map=solver._rwa_signal_map,
         )
         with pytest.raises(DynamicsError, match="increasing"):
@@ -833,7 +796,7 @@ class TestFusedAdaptiveLindblad:
         amps = jnp.array([0.3, 1.0])
         sig_fn = lambda a: ([Signal(a * 0.05, carrier_freq=nu)], None)
         out = fused_adaptive_sweep_solve(
-            vec, sig_fn, amps, t_span=(0.0, 3.0), y0=rho0, tile_b=8,
+            vec, sig_fn, amps, t_span=(0.0, 3.0), y0=rho0, tile_b=16,
             interpret=True,
         )
         assert out.shape == (2, 2, 2)
@@ -861,32 +824,29 @@ class TestEvalSlotsValidation:
 
     def test_duplicate_and_gapped_slots_rejected(self):
         import pytest
-        from qiskit_dynamics_tpu.ops.sweep_solver import sweep_expm_magnus2
         from qiskit_dynamics_tpu.ops.xla_sweep import sweep_expm_magnus2_xla
 
         args = self._args()
-        kw = dict(dt=0.1, tile_b=8, interpret=True)
+        kw = dict(dt=0.1)
         # duplicate slot value 0 (slot 1 written twice -> slot semantics broken)
         with pytest.raises(ValueError, match="permutation"):
-            sweep_expm_magnus2(*args, eval_slots=(0, -1, 0, -1, -1, 1), **kw)
-        # gapped: slot 1 missing -> would return uninitialized/zero memory
+            sweep_expm_magnus2_xla(*args, eval_slots=(0, -1, 0, -1, -1, 1), **kw)
+        # gapped: slot 1 missing -> would return zeros
         with pytest.raises(ValueError, match="permutation"):
-            sweep_expm_magnus2(*args, eval_slots=(-1, 0, -1, -1, 2, 3), **kw)
-        with pytest.raises(ValueError, match="permutation"):
-            sweep_expm_magnus2_xla(*args, dt=0.1, eval_slots=(-1, 0, -1, -1, 2, 3))
+            sweep_expm_magnus2_xla(*args, eval_slots=(-1, 0, -1, -1, 2, 3), **kw)
         # valid permutation (not sorted by step is fine) still works
-        out, traj = sweep_expm_magnus2(
+        out, traj = sweep_expm_magnus2_xla(
             *args, eval_slots=(1, -1, 0, -1, -1, 2), **kw
         )
         assert traj.shape[0] == 3
 
 
 class TestLargePhaseTrig:
-    """Phase range reduction (ops/trig_reduce.py): f32 kernels must stay
+    """Phase range reduction (ops/trig_reduce.py): f32 engines must stay
     accurate when frame/carrier phases reach hundreds of radians
-    (T * nu >~ 100 carrier cycles — the dim-27 serving regime; VERDICT r2
-    item 3). Without the EFT mod-2pi reduction these configs measured
-    ~4e-3 error; with it they sit at the f32 arithmetic floor (~4e-6)."""
+    (T * nu >~ 100 carrier cycles — the dim-27 serving regime). Without the
+    EFT mod-2pi reduction these configs reach ~4e-3 error; with it they sit
+    at the f32 arithmetic floor (~4e-6)."""
 
     def _config(self):
         rng = np.random.default_rng(3)
@@ -902,22 +862,7 @@ class TestLargePhaseTrig:
         return H0, ops, omega, coef, y0, dt, t0, T
 
     def _f64_reference(self, H0, ops, omega, coef, y0, dt, t0, T, order=10):
-        from qiskit_dynamics_tpu.ops.sweep_solver import _GAUSS_C1, _GAUSS_C2, _P2
-
-        y = y0.astype(complex)
-        for s in range(T):
-            Gs = []
-            for gi, c in enumerate((_GAUSS_C1, _GAUSS_C2)):
-                tau = t0 + (s + c) * dt
-                A = H0 + np.einsum("kb,kij->bij", coef[s, gi], ops)
-                Gs.append(A * np.exp(1j * omega * tau)[None])
-            G1, G2 = Gs
-            M = 0.5 * dt * (G1 + G2) + _P2 * dt * dt * (G2 @ G1 - G1 @ G2)
-            v = y.copy()
-            for kk in range(order, 0, -1):
-                v = y + np.einsum("bij,jb->ib", M, v) / kk
-            y = v
-        return y
+        return _magnus2_reference(H0, ops, omega, coef, y0, dt, t0, T, order)
 
     def test_fixed_step_f32_kernels_match_f64_polynomial(self):
         # must run WITHOUT x64 so the kernels take the f32 reduction path
@@ -929,16 +874,12 @@ class TestLargePhaseTrig:
             "t = TestLargePhaseTrig()\n"
             "H0, ops, omega, coef, y0, dt, t0, T = t._config()\n"
             "r = t._f64_reference(H0, ops, omega, coef, y0, dt, t0, T)\n"
-            "from qiskit_dynamics_tpu.ops.sweep_solver import sweep_expm_magnus2\n"
             "from qiskit_dynamics_tpu.ops.xla_sweep import sweep_expm_magnus2_xla\n"
-            "a = np.asarray(sweep_expm_magnus2(H0, ops, omega, coef, y0, dt=dt,"
-            " t0=t0, order=10, tile_b=8, interpret=True))\n"
             "b = np.asarray(sweep_expm_magnus2_xla(H0, ops, omega, coef, y0,"
             " dt=dt, t0=t0, order=10))\n"
-            "ea, eb = np.max(np.abs(a - r)), np.max(np.abs(b - r))\n"
-            "assert ea < 2e-5, f'pallas kernel large-phase error {ea:.2e}'\n"
+            "eb = np.max(np.abs(b - r))\n"
             "assert eb < 2e-5, f'xla engine large-phase error {eb:.2e}'\n"
-            "print('OK', ea, eb)\n"
+            "print('OK', eb)\n"
         )
         env = dict(os.environ)
         env.update(
@@ -954,12 +895,13 @@ class TestLargePhaseTrig:
         assert res.returncode == 0, res.stdout + res.stderr
 
     def test_adaptive_kernel_large_phase(self):
-        # adaptive kernel is f32 even under x64: direct interpret-mode check
+        # the adaptive engines are f32 even under x64: direct interpret-mode
+        # check of the Triton kernel
         from qiskit_dynamics_tpu.ops.adaptive_sweep import sweep_dopri5_lockstep
         from qiskit_dynamics_tpu.solvers.adaptive import tpu_dopri5
 
         rng = np.random.default_rng(11)
-        n, B = 4, 8
+        n, B = 4, 16
         t0, tf = 200.0, 204.0
         ah = lambda a: (a - a.conj().T) / 2
         H0 = 0.4 * ah(rng.normal(size=(n, n)) + 1j * rng.normal(size=(n, n)))
@@ -974,7 +916,7 @@ class TestLargePhaseTrig:
         out = np.asarray(
             sweep_dopri5_lockstep(
                 H0, op[None], omega, np.array([2 * np.pi * nu]), amps[None, :],
-                y0, tf=tf, t0=t0, atol=1e-8, rtol=1e-8, tile_b=8,
+                y0, tf=tf, t0=t0, atol=1e-8, rtol=1e-8, tile_b=16,
                 interpret=True, h0=0.01,
             )
         )
@@ -1000,198 +942,9 @@ class TestLargePhaseTrig:
         assert max(errs) < 3e-5, f"adaptive kernel large-phase error {max(errs):.2e}"
 
 
-class TestMemberMajorEngine:
-    """Member-major MXU kernel (ops/member_sweep.py): identical Magnus-2
-    polynomial as the lane kernel / XLA engine, per-member matrices resident
-    in VMEM with MXU matmuls (the large-dim layout; VERDICT r2 item 5)."""
-
-    def _problem(self, n=6, k=2, T=12, B=11, seed=5, anti_hermitian=False):
-        rng = np.random.default_rng(seed)
-        mk = (lambda a: (a - a.conj().T) / 2) if anti_hermitian else (lambda a: 0.3 * a)
-        H0 = mk(rng.normal(size=(n, n)) + 1j * rng.normal(size=(n, n)))
-        ops = np.array(
-            [mk(rng.normal(size=(n, n)) + 1j * rng.normal(size=(n, n))) for _ in range(k)]
-        ) * (1.0 if anti_hermitian else 1.0)
-        w = rng.normal(size=n)
-        omega = w[None, :] - w[:, None]
-        coef = rng.normal(size=(T, 2, k, B))
-        y0 = rng.normal(size=(n, B)) + 1j * rng.normal(size=(n, B))
-        return H0, ops, omega, coef, y0
-
-    def test_matches_xla_engine(self):
-        from qiskit_dynamics_tpu.ops.member_sweep import sweep_expm_magnus2_member
-        from qiskit_dynamics_tpu.ops.xla_sweep import sweep_expm_magnus2_xla
-
-        args = self._problem()
-        kw = dict(dt=0.04, t0=0.1, order=10)
-        a = sweep_expm_magnus2_member(*args, interpret=True, block_m=4, **kw)
-        b = sweep_expm_magnus2_xla(*args, **kw)
-        # B=11 is not a multiple of block_m=4: exercises the pad/trim path
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-12)
-
-    def test_hermitian_shortcut(self):
-        from qiskit_dynamics_tpu.ops.member_sweep import sweep_expm_magnus2_member
-
-        args = self._problem(anti_hermitian=True, B=8)
-        kw = dict(dt=0.04, t0=0.0, order=10, interpret=True, block_m=8)
-        a = sweep_expm_magnus2_member(*args, hermitian=False, **kw)
-        b = sweep_expm_magnus2_member(*args, hermitian=True, **kw)
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-12)
-
-    @pytest.mark.parametrize("horner", ["vpu", "hybrid", "bvpu"])
-    def test_horner_modes_match_mxu(self, horner):
-        # all Horner variants evaluate the identical Taylor polynomial —
-        # "bvpu" batches the mat-vec across the resident member block as one
-        # multiply + sublane reduction per iteration
-        from qiskit_dynamics_tpu.ops.member_sweep import sweep_expm_magnus2_member
-
-        args = self._problem(B=8)
-        kw = dict(dt=0.04, t0=0.1, order=10, interpret=True, block_m=4)
-        a = sweep_expm_magnus2_member(*args, horner="mxu", **kw)
-        b = sweep_expm_magnus2_member(*args, horner=horner, **kw)
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-12)
-
-    def test_hoisted_rotation_matches_per_member(self):
-        # hoist_rotation frame-rotates the shared static/op tables once per
-        # step (k fused multiply-adds per member) instead of paying the 6-op
-        # rotation per member — identical polynomial, so interpret-mode f32
-        # results must agree to reassociation level
-        from qiskit_dynamics_tpu.ops.member_sweep import sweep_expm_magnus2_member
-
-        args = self._problem(B=8)
-        kw = dict(dt=0.04, t0=0.1, order=10, interpret=True, block_m=4)
-        a = sweep_expm_magnus2_member(*args, hoist_rotation=False, **kw)
-        b = sweep_expm_magnus2_member(*args, hoist_rotation=True, **kw)
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-5, rtol=1e-5)
-        # default heuristic at this size (n=6, k=2) enables the hoist
-        c = sweep_expm_magnus2_member(*args, **kw)
-        np.testing.assert_allclose(np.asarray(b), np.asarray(c), atol=0)
-
-    def test_bvpu_requires_resident(self):
-        from qiskit_dynamics_tpu.ops.member_sweep import sweep_expm_magnus2_member
-
-        args = self._problem(B=4)
-        with pytest.raises(ValueError, match="bvpu"):
-            sweep_expm_magnus2_member(
-                *args, dt=0.04, horner="bvpu", resident=False, interpret=True
-            )
-
-    @pytest.mark.parametrize("hermitian", [False, True])
-    @pytest.mark.parametrize("hoist", [False, True])
-    def test_batched_build_matches_member(self, hermitian, hoist):
-        # gen-2 whole-block build/assembly (build="batched"): identical
-        # polynomial as the per-member op chains, so interpret results agree
-        # to reassociation level in every (hermitian, hoist) combination
-        from qiskit_dynamics_tpu.ops.member_sweep import sweep_expm_magnus2_member
-
-        args = self._problem(B=8, anti_hermitian=hermitian)
-        kw = dict(
-            dt=0.04, t0=0.1, order=10, interpret=True, block_m=4,
-            hermitian=hermitian, hoist_rotation=hoist,
-        )
-        a = sweep_expm_magnus2_member(*args, build="member", **kw)
-        b = sweep_expm_magnus2_member(*args, build="batched", **kw)
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-12)
-
-    def test_batched_build_requires_resident(self):
-        from qiskit_dynamics_tpu.ops.member_sweep import sweep_expm_magnus2_member
-
-        args = self._problem(B=4)
-        with pytest.raises(ValueError, match="batched"):
-            sweep_expm_magnus2_member(
-                *args, dt=0.04, build="batched", resident=False, interpret=True
-            )
-
-    def test_glue_member_build_batched_and_gradient(self):
-        # member_build="batched" through fused_sweep_solve: forward matches
-        # the XLA engine; gradient (member primal, XLA adjoint) matches too
-        import jax
-        from qiskit_dynamics_tpu import Signal
-        from qiskit_dynamics_tpu.benchmarks import cr_solver
-        from qiskit_dynamics_tpu.solvers import fused_sweep_solve
-
-        solver, w1 = cr_solver(dim=2)
-        y0 = np.zeros(4, dtype=complex)
-        y0[0] = 1.0
-        sig_fn = lambda a: [Signal(lambda t: a * 0.02, carrier_freq=w1)]
-        kw = dict(
-            t_span=(0.0, 2.0), max_dt=0.25, y0=y0,
-            rwa_signal_map=solver._rwa_signal_map, interpret=True,
-        )
-        amps = jnp.array([0.3, 0.75, 1.0])
-        out_b = fused_sweep_solve(
-            solver.model, sig_fn, amps, sweep_engine="member",
-            member_build="batched", **kw
-        )
-        out_x = fused_sweep_solve(solver.model, sig_fn, amps, sweep_engine="xla", **kw)
-        np.testing.assert_allclose(np.asarray(out_b), np.asarray(out_x), atol=1e-12)
-
-        def loss(amps, **ekw):
-            yf = fused_sweep_solve(solver.model, sig_fn, amps, **ekw, **kw)
-            return jnp.mean(jnp.abs(yf[:, 1]) ** 2)
-
-        g_b = jax.grad(
-            lambda a: loss(a, sweep_engine="member", member_build="batched")
-        )(amps)
-        g_x = jax.grad(lambda a: loss(a, sweep_engine="xla"))(amps)
-        np.testing.assert_allclose(np.asarray(g_b), np.asarray(g_x), rtol=1e-6, atol=1e-12)
-
-    def test_glue_member_engine(self):
-        # through fused_sweep_solve with sweep_engine="member"
-        import jax
-        from qiskit_dynamics_tpu import Signal
-        from qiskit_dynamics_tpu.benchmarks import cr_solver
-        from qiskit_dynamics_tpu.solvers import fused_sweep_solve
-
-        solver, w1 = cr_solver(dim=2)
-        y0 = np.zeros(4, dtype=complex)
-        y0[0] = 1.0
-        amps = jnp.array([0.3, 0.75, 1.0])
-        sig_fn = lambda a: [Signal(lambda t: a * 0.02, carrier_freq=w1)]
-        kw = dict(
-            t_span=(0.0, 2.0), max_dt=0.25, y0=y0,
-            rwa_signal_map=solver._rwa_signal_map, interpret=True,
-        )
-        out_m = fused_sweep_solve(
-            solver.model, sig_fn, amps, sweep_engine="member", **kw
-        )
-        out_x = fused_sweep_solve(solver.model, sig_fn, amps, sweep_engine="xla", **kw)
-        np.testing.assert_allclose(np.asarray(out_m), np.asarray(out_x), atol=1e-12)
-
-    def test_member_engine_gradient(self):
-        # custom vjp (member primal, XLA adjoint): grads through the member
-        # engine match the XLA engine's exactly (identical polynomial)
-        import jax
-        from qiskit_dynamics_tpu import Signal
-        from qiskit_dynamics_tpu.benchmarks import cr_solver
-        from qiskit_dynamics_tpu.solvers import fused_sweep_solve
-
-        solver, w1 = cr_solver(dim=2)
-        y0 = np.zeros(4, dtype=complex)
-        y0[0] = 1.0
-        sig_fn = lambda a: [Signal(lambda t: a * 0.02, carrier_freq=w1)]
-        kw = dict(
-            t_span=(0.0, 2.0), max_dt=0.25, y0=y0,
-            rwa_signal_map=solver._rwa_signal_map, interpret=True,
-        )
-
-        def loss(amps, engine):
-            yf = fused_sweep_solve(
-                solver.model, sig_fn, amps, sweep_engine=engine, **kw
-            )
-            return jnp.mean(jnp.abs(yf[:, 1]) ** 2)
-
-        amps = jnp.array([0.3, 0.75, 1.0])
-        g_m = jax.grad(lambda a: loss(a, "member"))(amps)
-        g_x = jax.grad(lambda a: loss(a, "xla"))(amps)
-        np.testing.assert_allclose(np.asarray(g_m), np.asarray(g_x), rtol=1e-6, atol=1e-12)
-        assert np.max(np.abs(np.asarray(g_m))) > 0
-
-
 class TestAdaptiveDifferentiable:
-    """Differentiable lockstep-adaptive sweeps (VERDICT r2 items 2 and 6):
-    Pallas primal with recorded steps, fixed-grid XLA replay adjoint
-    (ops/adaptive_replay.py)."""
+    """Differentiable lockstep-adaptive sweeps: lockstep primal with
+    recorded steps, fixed-grid XLA replay adjoint (ops/adaptive_replay.py)."""
 
     def _setup(self, T=2.5):
         from qiskit_dynamics_tpu.benchmarks import cr_solver
@@ -1209,7 +962,7 @@ class TestAdaptiveDifferentiable:
         solver, sig_fn, y0, T = self._setup()
         amps = jnp.array([0.4, 0.7, 0.9, 1.0, 0.5, 0.3, 0.6, 0.8])
         kw = dict(
-            t_span=(0.0, T), y0=y0, tile_b=8, interpret=True,
+            t_span=(0.0, T), y0=y0, tile_b=16, interpret=True,
             rwa_signal_map=solver._rwa_signal_map,
         )
         a = fused_adaptive_sweep_solve(solver.model, sig_fn, amps, **kw)
@@ -1219,14 +972,14 @@ class TestAdaptiveDifferentiable:
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
     def test_replay_reproduces_kernel(self):
-        # the adjoint's forward replay must track the Pallas primal to f32
+        # the adjoint's forward replay must track the Triton primal to f32
         # roundoff — that is what makes the VJP the primal's adjoint
         from qiskit_dynamics_tpu.ops.adaptive_sweep import sweep_dopri5_lockstep
         from qiskit_dynamics_tpu.ops.adaptive_replay import dopri5_replay
         from qiskit_dynamics_tpu.ops.trig_reduce import split_array
 
         rng = np.random.default_rng(2)
-        n, B = 4, 8
+        n, B = 4, 16
         t0, tf = 0.5, 3.0
         ah = lambda a: (a - a.conj().T) / 2
         H0 = 0.5 * ah(rng.normal(size=(n, n)) + 1j * rng.normal(size=(n, n)))
@@ -1239,7 +992,7 @@ class TestAdaptiveDifferentiable:
 
         out, rec = sweep_dopri5_lockstep(
             H0, op[None], omega, freqs, amps[None, :], y0, tf=tf, t0=t0,
-            atol=1e-7, rtol=1e-7, tile_b=8, interpret=True, h0=0.05,
+            atol=1e-7, rtol=1e-7, tile_b=16, interpret=True, h0=0.05,
             record_steps=True, max_steps=512,
         )
         o_hi, o_lo = split_array(omega)
@@ -1262,7 +1015,7 @@ class TestAdaptiveDifferentiable:
 
         def loss(amps):
             out = fused_adaptive_sweep_solve(
-                solver.model, sig_fn, amps, t_span=(0.0, T), y0=y0, tile_b=8,
+                solver.model, sig_fn, amps, t_span=(0.0, T), y0=y0, tile_b=16,
                 interpret=True, rwa_signal_map=solver._rwa_signal_map,
             )
             return jnp.mean(jnp.abs(out[:, 1]) ** 2)
@@ -1285,7 +1038,7 @@ class TestAdaptiveDifferentiable:
 
         def loss(amps):
             traj = fused_adaptive_sweep_solve(
-                solver.model, sig_fn, amps, t_span=(0.0, T), y0=y0, tile_b=8,
+                solver.model, sig_fn, amps, t_span=(0.0, T), y0=y0, tile_b=16,
                 interpret=True, rwa_signal_map=solver._rwa_signal_map,
                 t_eval=t_eval,
             )  # (B, n_eval, dim)
@@ -1298,7 +1051,7 @@ class TestAdaptiveDifferentiable:
         assert abs(g[i] - fd) <= 5e-3 * max(abs(fd), 1e-9), (g[i], float(fd))
 
     def test_fixed_step_trajectory_gradient(self):
-        # eval_slots now flow through the fixed-step custom VJP too
+        # trajectory stores of the fixed-step engine are differentiable too
         import jax
 
         from qiskit_dynamics_tpu.solvers import fused_sweep_solve
@@ -1309,8 +1062,7 @@ class TestAdaptiveDifferentiable:
         def loss(amps):
             traj = fused_sweep_solve(
                 solver.model, sig_fn, amps, t_span=(0.0, T), max_dt=0.25,
-                y0=y0, tile_b=128, interpret=True,
-                rwa_signal_map=solver._rwa_signal_map, t_eval=[1.0, 2.0],
+                y0=y0, rwa_signal_map=solver._rwa_signal_map, t_eval=[1.0, 2.0],
             )
             return jnp.mean(jnp.abs(traj[:, :, 1]) ** 2)
 
@@ -1319,3 +1071,260 @@ class TestAdaptiveDifferentiable:
         i = 1
         fd = (loss(amps0.at[i].add(eps)) - loss(amps0.at[i].add(-eps))) / (2 * eps)
         assert abs(g[i] - fd) <= 5e-3 * max(abs(fd), 1e-9), (g[i], float(fd))
+
+
+def _lockstep_problem(n, k=2, B=32, seed=0):
+    rng = np.random.default_rng(seed)
+    ah = lambda a: (a - a.conj().T) / 2
+    H0 = 0.4 * ah(rng.normal(size=(n, n)) + 1j * rng.normal(size=(n, n)))
+    ops = np.stack(
+        [0.3 * ah(rng.normal(size=(n, n)) + 1j * rng.normal(size=(n, n))) for _ in range(k)]
+    )
+    w = rng.normal(size=n) * 4.0
+    omega = w[None, :] - w[:, None]
+    freqs = 2 * np.pi * rng.uniform(0.5, 1.5, size=k)
+    y0 = rng.normal(size=(n, B)) + 1j * rng.normal(size=(n, B))
+    y0 /= np.linalg.norm(y0, axis=0)
+    return rng, H0, ops, omega, freqs, y0
+
+
+class TestLockstepEngines:
+    """The Triton kernel (Pallas interpreter) against its XLA twin, with the
+    same controller and the same per-group grouping."""
+
+    @pytest.mark.parametrize("n", [2, 4, 8, 16, 27])
+    @pytest.mark.parametrize("mode", ["constant", "table", "t_eval"])
+    def test_triton_matches_xla(self, n, mode):
+        from qiskit_dynamics_tpu.ops.adaptive_sweep import sweep_dopri5_lockstep
+
+        k, B, t0, tf = 2, 32, 0.25, 1.5
+        rng, H0, ops, omega, freqs, y0 = _lockstep_problem(n, k, B, seed=n)
+        kw = dict(
+            tf=tf, t0=t0, atol=1e-6, rtol=1e-6, h0=0.05, tile_b=16,
+            record_steps=True, max_steps=256,
+        )
+        if mode == "table":
+            S = 5
+            amps = rng.normal(size=(k, S, B)) + 1j * rng.normal(size=(k, S, B))
+            kw["env_dt"] = (tf - t0) / S
+        else:
+            amps = rng.normal(size=(k, B)) + 1j * rng.normal(size=(k, B))
+        if mode == "t_eval":
+            kw["eval_ts"] = (0.4, 0.9, tf - t0)
+        args = (H0, ops, omega, freqs, amps, y0)
+        out_x, rec_x = sweep_dopri5_lockstep(*args, engine="xla", **kw)
+        out_t, rec_t = sweep_dopri5_lockstep(*args, interpret=True, **kw)
+        # at tol 1e-6 the f32 error estimate carries ~1% roundoff, so the
+        # engines' step sizes drift apart at that level (a final sliver
+        # step may appear in one of them); the states agree to the
+        # integration accuracy
+        steps_x = (np.asarray(rec_x) > 0).sum(axis=1)
+        steps_t = (np.asarray(rec_t) > 0).sum(axis=1)
+        assert steps_x.min() > 3 and np.abs(steps_x - steps_t).max() <= 1
+        np.testing.assert_allclose(
+            np.asarray(rec_t).sum(axis=1), tf - t0, rtol=1e-6
+        )
+        pairs = zip(out_t, out_x) if mode == "t_eval" else [(out_t, out_x)]
+        for a, b in pairs:
+            assert a.shape == b.shape and np.isfinite(np.asarray(a)).all()
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=2e-5)
+
+    @pytest.mark.parametrize("y0_kind", ["vector", "matrix"])
+    def test_public_entry_engines_agree(self, y0_kind):
+        """``fused_adaptive_sweep_solve``: ``interpret=True`` (Triton kernel)
+        and the CPU default (XLA engine) agree for vector and 2-d ``y0``."""
+        from qiskit_dynamics_tpu.benchmarks import cr_solver
+        from qiskit_dynamics_tpu.solvers import fused_adaptive_sweep_solve
+        from qiskit_dynamics_tpu import Signal
+
+        solver, w1 = cr_solver(dim=2)
+        y0 = np.eye(4, dtype=complex) if y0_kind == "matrix" else np.eye(4)[0].astype(complex)
+        amps = jnp.array([0.3, 0.9, 0.6])
+        kw = dict(
+            t_span=(0.0, 2.0), y0=y0, tile_b=16, rwa_signal_map=solver._rwa_signal_map,
+        )
+        fn = lambda a: [Signal(lambda t: a * 0.02, carrier_freq=w1)]
+        a = fused_adaptive_sweep_solve(solver.model, fn, amps, interpret=True, **kw)
+        b = fused_adaptive_sweep_solve(solver.model, fn, amps, **kw)
+        assert a.shape == b.shape == ((3, 4, 4) if y0_kind == "matrix" else (3, 4))
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=2e-6)
+
+    @pytest.mark.parametrize(
+        "n,n_pad", [(1, 16), (2, 16), (16, 16), (17, 32), (27, 32), (64, 64)]
+    )
+    def test_pad_dim(self, n, n_pad):
+        from qiskit_dynamics_tpu.ops.adaptive_sweep import _pad_dim
+
+        assert _pad_dim(n) == n_pad
+
+    @pytest.mark.parametrize(
+        "n,tile_b,warps", [(2, 32, 8), (16, 32, 8), (17, 16, 8), (27, 16, 8), (64, 16, 16)]
+    )
+    def test_default_group_size(self, n, tile_b, warps):
+        """A (n_pad, tile_b) block of 512 elements up to dim 32, two block
+        elements per thread."""
+        from qiskit_dynamics_tpu.ops.adaptive_sweep import (
+            _pad_dim, _triton_warps, lockstep_tile_b,
+        )
+
+        assert lockstep_tile_b(n) == tile_b
+        assert _triton_warps(_pad_dim(n), tile_b) == warps
+
+    @pytest.mark.parametrize("dim,tile_b", [(2, 32), (5, 16)])
+    def test_public_entry_resolves_group_size(self, dim, tile_b):
+        """``adaptive_sweep_inputs`` pads the lanes to the default group of
+        its solve dimension and reports it among the engine's statics."""
+        from qiskit_dynamics_tpu import Signal
+        from qiskit_dynamics_tpu.benchmarks import cr_solver
+        from qiskit_dynamics_tpu.solvers.fused_sweep import adaptive_sweep_inputs
+
+        solver, w1 = cr_solver(dim=dim)
+        y0 = np.eye(dim * dim)[0].astype(complex)
+        fn = lambda a: [Signal(lambda t: a * 0.02, carrier_freq=w1)]
+        args, statics, _ = adaptive_sweep_inputs(
+            solver.model, fn, jnp.array([0.3, 0.9, 0.6]), (0.0, 2.0), y0,
+            rwa_signal_map=solver._rwa_signal_map,
+        )
+        assert statics["tile_b"] == tile_b
+        assert args[-1].shape == (dim * dim, tile_b)
+
+    def test_engine_choice(self):
+        from qiskit_dynamics_tpu.ops.adaptive_sweep import lockstep_engine
+
+        # the suite runs on the CPU: XLA twin unless the interpreter is asked
+        assert lockstep_engine() == "xla"
+        assert lockstep_engine(interpret=True) == "triton"
+
+    @pytest.mark.parametrize("tile_b", [8, 24])
+    def test_triton_rejects_bad_tile(self, tile_b):
+        from qiskit_dynamics_tpu.ops.adaptive_sweep import sweep_dopri5_lockstep
+
+        _, H0, ops, omega, freqs, y0 = _lockstep_problem(2, 1, 48)
+        with pytest.raises(ValueError, match="tile_b"):
+            sweep_dopri5_lockstep(
+                H0, ops, omega, freqs, np.ones((1, 48), complex), y0, tf=1.0,
+                tile_b=tile_b, interpret=True,
+            )
+
+    def test_finish_poisons_failed_groups_and_masks_record(self):
+        from qiskit_dynamics_tpu.ops.adaptive_sweep import _finish
+
+        y = jnp.ones((4, 32), jnp.complex64)
+        rec = jnp.full((2, 5), 7.0, jnp.float32)  # garbage past the count
+        info = jnp.array([[1, 9, 3], [0, 9, 2]], jnp.int32)
+        out, steps = _finish((y, None, rec, info), 3, 16, True, 0)
+        out = np.asarray(out)
+        assert out.shape == (3, 32)
+        assert np.all(out[:, :16] == 1) and np.isnan(out[:, 16:]).all()
+        np.testing.assert_array_equal(
+            np.asarray(steps), [[7, 7, 7, 0, 0], [7, 7, 0, 0, 0]]
+        )
+
+    def test_replay_reproduces_xla_engine(self):
+        """The AD replay re-integrates the XLA engine's recorded grid."""
+        from qiskit_dynamics_tpu.ops.adaptive_sweep import sweep_dopri5_lockstep
+        from qiskit_dynamics_tpu.ops.adaptive_replay import dopri5_replay
+        from qiskit_dynamics_tpu.ops.trig_reduce import split_array
+
+        rng, H0, ops, omega, freqs, y0 = _lockstep_problem(3, 1, 32, seed=9)
+        amps = rng.normal(size=(1, 32)) + 1j * rng.normal(size=(1, 32))
+        out, rec = sweep_dopri5_lockstep(
+            H0, ops, omega, freqs, amps, y0, tf=2.0, t0=0.5, atol=1e-7,
+            rtol=1e-7, tile_b=16, h0=0.05, record_steps=True, max_steps=512,
+            engine="xla",
+        )
+        o_hi, o_lo = split_array(omega)
+        f_hi, f_lo = split_array(freqs)
+        replay = dopri5_replay(
+            H0, ops, o_hi, o_lo, f_hi, f_lo, amps[:, None, :], y0, rec,
+            t0=0.5, env_dt=1.5,
+        )
+        err = np.max(np.abs(np.asarray(out) - np.asarray(replay)))
+        assert err < 5e-6, f"replay deviates from the XLA engine by {err:.2e}"
+
+
+@pytest.mark.parametrize(
+    "solve_dim,engine",
+    [(2, "xla"), (16, "xla"), (27, "xla"), (64, "xla"), (128, "xla"), (129, "poly"), (256, "poly")],
+)
+def test_fixed_step_engine_choice_by_dim(solve_dim, engine):
+    from qiskit_dynamics_tpu.solvers.fused_sweep import _auto_sweep_engine
+
+    assert _auto_sweep_engine(solve_dim) == engine
+
+
+class TestLockstepController:
+    """The step controller shared by the Triton kernel and its XLA twin."""
+
+    def _clip(self, **kw):
+        from qiskit_dynamics_tpu.ops.adaptive_sweep import _clip_step
+
+        args = dict(
+            s_hi=jnp.float32(0.3), s_lo=jnp.float32(0.0), h_prop=jnp.float32(0.5),
+            eidx=jnp.int32(0), dur=(jnp.float32(2.0), jnp.float32(0.0)), n_eval=0,
+            target_at=None, n_env=1, env_dt=2.0,
+        )
+        args.update(kw)
+        return _clip_step(**args)
+
+    def test_step_clipped_to_remaining_time(self):
+        h, cell, _, _ = self._clip(s_hi=jnp.float32(1.8))
+        assert float(h) == pytest.approx(0.2, rel=1e-6) and int(cell) == 0
+
+    def test_step_clipped_to_envelope_cell(self):
+        # cells of width 0.25: t = 0.3 sits in cell 1, whose edge is 0.5
+        h, cell, _, _ = self._clip(n_env=8, env_dt=0.25)
+        assert float(h) == pytest.approx(0.2, rel=1e-6) and int(cell) == 1
+
+    def test_step_clipped_to_trajectory_time(self):
+        targets = jnp.array([0.45, 1.0], jnp.float32)
+        h, _, target, have = self._clip(n_eval=2, target_at=lambda i: targets[i])
+        assert float(h) == pytest.approx(0.15, rel=1e-5)
+        assert float(target) == pytest.approx(0.45) and bool(have)
+
+    @pytest.mark.parametrize(
+        "err,accept,grows",
+        [(0.5, True, True), (2.0, False, False), (1e-12, True, True)],
+    )
+    def test_accept_and_next_proposal(self, err, accept, grows):
+        from qiskit_dynamics_tpu.ops.adaptive_sweep import _adapt
+
+        h = jnp.float32(0.1)
+        acc, bad, h_new = _adapt(h, h, jnp.float32(err), jnp.float32(1.0), False)
+        assert bool(acc) == accept and not bool(bad)
+        assert (float(h_new) > 0.1) == grows
+        assert 0.02 - 1e-9 <= float(h_new) <= 1.0 + 1e-6  # factor in [0.2, 10]
+
+    def test_stalled_step_is_accepted_and_flagged(self):
+        from qiskit_dynamics_tpu.ops.adaptive_sweep import _adapt
+
+        h = jnp.float32(1e-9)
+        acc, bad, _ = _adapt(h, h, jnp.float32(1e3), jnp.float32(1.0), False)
+        assert bool(acc) and bool(bad)
+
+
+@pytest.mark.parametrize("n", [3, 8])
+def test_lockstep_rhs_matches_dense_generator(n):
+    """``G(t) y`` via the diagonal frame conjugation equals the dense
+    Hadamard-phase generator ``(e^{i omega t} o (S + sum_j c_j O_j)) y``."""
+    from qiskit_dynamics_tpu.ops.adaptive_sweep import lockstep_rhs
+    from qiskit_dynamics_tpu.ops.trig_reduce import split_array, split_const
+
+    rng, H0, ops, omega, freqs, y0 = _lockstep_problem(n, 2, 4, seed=3)
+    amps = rng.normal(size=(2, 1, 4)) + 1j * rng.normal(size=(2, 1, 4))
+    w = omega[0]
+    rhs = lockstep_rhs(
+        jnp.asarray(H0, jnp.complex64), jnp.asarray(ops, jnp.complex64),
+        tuple(jnp.asarray(a) for a in split_array(w)),
+        tuple(jnp.asarray(a) for a in split_array(freqs)),
+        split_const(0.2), jnp.asarray(amps.reshape(2, 1, 1, 4), jnp.complex64),
+    )
+    s = 0.7
+    y = jnp.asarray(y0.T[None], jnp.complex64)  # (L=1, Bt=4, n)
+    out = np.asarray(rhs(y, (jnp.full(1, s, jnp.float32), jnp.zeros(1, jnp.float32)),
+                         jnp.zeros(1, jnp.int32)))[0]
+    t = 0.2 + s
+    for b in range(4):
+        c = np.real(amps[:, 0, b] * np.exp(1j * freqs * t))
+        G = np.exp(1j * omega * t) * (H0 + np.tensordot(c, ops, axes=1))
+        np.testing.assert_allclose(out[b], G @ y0[:, b], atol=2e-5)

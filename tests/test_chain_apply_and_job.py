@@ -1,19 +1,19 @@
 """Direct unit coverage for corners previously tested only indirectly:
-the streamed chain-apply kernel (exercised via perturbative solve_sweep)
-and the DynamicsJob lifecycle (exercised via backend.run)."""
+the propagator-chain scan (exercised via perturbative solve_sweep) and the
+DynamicsJob lifecycle (exercised via backend.run)."""
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from qiskit_dynamics_tpu.ops.chain_apply import chain_apply_bol, chain_apply_bol_ad
+from qiskit_dynamics_tpu.ops.chain_apply import chain_apply
 from qiskit_dynamics_tpu.backend.dynamics_job import DynamicsJob, JobStatus
 from qiskit_dynamics_tpu.exceptions import DynamicsError
 
 
 def _random_chain(rng, T, n, B, scale=0.4):
-    P = rng.normal(size=(T, n, n, B)) + 1j * rng.normal(size=(T, n, n, B))
-    return jnp.asarray(np.eye(n)[None, :, :, None] + scale * P / n)
+    P = rng.normal(size=(T, B, n, n)) + 1j * rng.normal(size=(T, B, n, n))
+    return jnp.asarray(np.eye(n)[None, None] + scale * P / n)
 
 
 class TestChainApplyBol:
@@ -22,41 +22,39 @@ class TestChainApplyBol:
         T, n, B = 7, 4, 16
         props = _random_chain(rng, T, n, B)
         y0 = jnp.asarray(
-            rng.normal(size=(n, B)) + 1j * rng.normal(size=(n, B))
+            rng.normal(size=(B, n)) + 1j * rng.normal(size=(B, n))
         )
-        out = chain_apply_bol(props, y0, tile_b=16, interpret=True)
+        out = chain_apply(props, y0)
         expected = np.asarray(y0).copy()
         for t in range(T):
             for b in range(B):
-                expected[:, b] = np.asarray(props[t, :, :, b]) @ expected[:, b]
+                expected[b] = np.asarray(props[t, b]) @ expected[b]
         np.testing.assert_allclose(np.asarray(out), expected, atol=1e-12)
 
     def test_single_step(self):
         rng = np.random.default_rng(1)
         props = _random_chain(rng, 1, 3, 8)
-        y0 = jnp.asarray(rng.normal(size=(3, 8)) + 0j)
-        out = chain_apply_bol(props, y0, tile_b=8, interpret=True)
-        expected = np.einsum("ijb,jb->ib", np.asarray(props[0]), np.asarray(y0))
+        y0 = jnp.asarray(rng.normal(size=(8, 3)) + 0j)
+        out = chain_apply(props, y0)
+        expected = np.einsum("bij,bj->bi", np.asarray(props[0]), np.asarray(y0))
         np.testing.assert_allclose(np.asarray(out), expected, atol=1e-12)
 
     def test_empty_chain_rejected(self):
         with pytest.raises(ValueError, match="T >= 1"):
-            chain_apply_bol(
-                jnp.zeros((0, 2, 2, 8), dtype=complex),
-                jnp.zeros((2, 8), dtype=complex),
-                tile_b=8,
-                interpret=True,
+            chain_apply(
+                jnp.zeros((0, 8, 2, 2), dtype=complex),
+                jnp.zeros((8, 2), dtype=complex),
             )
 
     def test_grad_matches_fd(self):
-        """custom-vjp gradient in both props and y0 vs finite differences."""
+        """Autodiff gradient in both props and y0 vs finite differences."""
         rng = np.random.default_rng(2)
         T, n, B = 4, 3, 8
         props0 = _random_chain(rng, T, n, B)
-        y0 = jnp.asarray(rng.normal(size=(n, B)) + 0j)
+        y0 = jnp.asarray(rng.normal(size=(B, n)) + 0j)
 
         def loss(a):
-            out = chain_apply_bol_ad(props0 * a, y0 * (2.0 - a), 8, True)
+            out = chain_apply(props0 * a, y0 * (2.0 - a))
             return jnp.sum(jnp.abs(out) ** 2)
 
         g = float(jax.grad(loss)(0.9))

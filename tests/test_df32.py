@@ -156,76 +156,6 @@ class TestDfSweep:
         assert np.max(np.abs(out - ref)) < 1e-9
 
 
-class TestDfSweepPallas:
-    """The Pallas df32 engine must agree with the XLA df32 engine to
-    arithmetic precision (interpret mode on CPU)."""
-
-    @pytest.mark.parametrize("magnus_order", [2, 3])
-    def test_engines_agree(self, magnus_order):
-        from qiskit_dynamics_tpu.ops.df_sweep import MAGNUS_NODES, sweep_expm_magnus_df
-        from qiskit_dynamics_tpu.ops.df_sweep_pallas import sweep_expm_magnus_df_pallas
-
-        rng = np.random.default_rng(5)
-        n, k, B = 4, 2, 8
-        H0 = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
-        static = -1j * (H0 + H0.conj().T) / 2 * 0.3
-        ops = np.array(
-            [
-                -1j * ((A + A.conj().T) / 2) * 0.1
-                for A in (
-                    rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
-                    for _ in range(k)
-                )
-            ]
-        )
-        omega = rng.standard_normal((n, n)) * 0.5
-        omega = omega - omega.T
-        amps = rng.standard_normal((k, B))
-        freqs = np.array([1.3, 0.7])
-        t0, dt, T = 0.5, 0.05, 40
-        tau = t0 + dt * (np.arange(T)[:, None] + MAGNUS_NODES[magnus_order][None, :])
-        coefs = amps[None, None] * np.cos(
-            freqs[None, None, :, None] * tau[:, :, None, None]
-        )
-        y0 = np.zeros((n, B), dtype=complex)
-        y0[0] = 1.0
-        ref = sweep_expm_magnus_df(
-            static, ops, omega, coefs, y0, dt=dt, t0=t0,
-            magnus_order=magnus_order, chunk_b=8,
-            fast_commutators=False, horner_df_tail=0,
-        )
-        out = sweep_expm_magnus_df_pallas(
-            static, ops, omega, coefs, y0, dt=dt, t0=t0,
-            magnus_order=magnus_order, tile_b=8, interpret=True,
-        )
-        assert np.max(np.abs(out - ref)) < 1e-13
-
-    def test_pad_to_tile(self):
-        """B not a multiple of tile_b is padded internally and trimmed."""
-        from qiskit_dynamics_tpu.ops.df_sweep import MAGNUS_NODES, sweep_expm_magnus_df
-        from qiskit_dynamics_tpu.ops.df_sweep_pallas import sweep_expm_magnus_df_pallas
-
-        rng = np.random.default_rng(6)
-        n, k, B = 2, 1, 5
-        static = -1j * np.array([[0.3, 0.0], [0.0, -0.3]], dtype=complex)
-        ops = np.array([-1j * np.array([[0, 0.2], [0.2, 0]], dtype=complex)])
-        omega = np.zeros((n, n))
-        T, dt = 16, 0.1
-        tau = dt * (np.arange(T)[:, None] + MAGNUS_NODES[3][None, :])
-        coefs = rng.standard_normal((1, B))[None, None] * np.cos(tau)[:, :, None, None]
-        y0 = np.zeros((n, B), dtype=complex)
-        y0[0] = 1.0
-        ref = sweep_expm_magnus_df(
-            static, ops, omega, coefs, y0, dt=dt, chunk_b=8,
-            fast_commutators=False, horner_df_tail=0,
-        )
-        out = sweep_expm_magnus_df_pallas(
-            static, ops, omega, coefs, y0, dt=dt, tile_b=8, interpret=True
-        )
-        assert out.shape == (n, B)
-        assert np.max(np.abs(out - ref)) < 1e-13
-
-
 class TestFusedSweepDf32:
     def test_cr_sweep_1e_8_agreement(self):
         """BASELINE.md bar: fused sweep agrees with DOP853 to 1e-8."""
@@ -285,7 +215,7 @@ class TestFusedSweepDf32:
 
         out_f32 = fused_sweep_solve(
             solver.model, sig_fn, jnp.asarray(amps), t_span=t_span, max_dt=0.05,
-            y0=y0, rwa_signal_map=solver._rwa_signal_map, tile_b=8, interpret=True,
+            y0=y0, rwa_signal_map=solver._rwa_signal_map,
         )
         np.testing.assert_allclose(np.asarray(out_f32), np.stack(refs), atol=2e-5)
 
@@ -301,7 +231,7 @@ class TestFusedSweepDf32:
         t_span = (0.75, 3.25)
         sig_fn = lambda a: [Signal(lambda t: a * 0.02, carrier_freq=w1)]
         out = fused_adaptive_sweep_solve(
-            solver.model, sig_fn, amps, t_span=t_span, y0=y0, tile_b=8,
+            solver.model, sig_fn, amps, t_span=t_span, y0=y0, tile_b=16,
             interpret=True, rwa_signal_map=solver._rwa_signal_map,
         )
         for i, a in enumerate([0.4, 0.9]):
@@ -1279,8 +1209,6 @@ class TestDf32Trajectories:
             run([1.0, 1.0])
         with pytest.raises(DynamicsError, match="within t_span"):
             run([1.0, 5.0])
-        with pytest.raises(DynamicsError, match="pallas.*t_eval|t_eval"):
-            run([1.0, 2.0], df_engine="pallas")
 
     def test_off_grid_t_eval_splits_steps(self):
         """Off-grid evaluation times split the containing step exactly (the

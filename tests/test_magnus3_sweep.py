@@ -4,9 +4,8 @@
 commutator rule (Blanes et al.; same math as
 ``fixed_step_solvers.get_exponential_take_step`` magnus_order=3,
 ref ``/root/reference/qiskit_dynamics/solvers/fixed_step_solvers.py:524-543``)
-on the member-major Pallas kernel (resident, solve_dim <= 64) and the
-batch-major XLA engine. It buys ~2.5x larger steps at equal accuracy — the
-round-4 lever that closed the lindblad8 bench bar (BENCHMARKS.md).
+on the batch-major XLA engine and the polynomial-expanded engine. It buys
+~2.5x larger steps at equal accuracy.
 """
 import numpy as np
 import jax
@@ -43,7 +42,7 @@ def lindblad_setup():
 
 class TestMagnus3Accuracy:
     @pytest.mark.parametrize("engine,kwargs", [
-        ("member", {"interpret": True}),
+        ("poly", {}),
         ("xla", {}),
     ])
     def test_sixth_order_vs_adaptive(self, lindblad_setup, engine, kwargs):
@@ -80,26 +79,14 @@ class TestMagnus3Accuracy:
         err2 = np.max(np.abs(np.asarray(out2[0]) - ref))
         assert err3 < err2 / 10, (err3, err2)
 
-    def test_member_matches_xla(self, lindblad_setup):
-        model, _, rho0, sig = lindblad_setup
-        amps = jnp.linspace(0.2, 1.0, 4)
-        kw = dict(t_span=(0.0, 2.0), max_dt=0.05, y0=rho0, magnus_order=3)
-        out_m = fused_sweep_solve(
-            model, sig, amps, sweep_engine="member", interpret=True, **kw
-        )
-        out_x = fused_sweep_solve(model, sig, amps, sweep_engine="xla", **kw)
-        np.testing.assert_allclose(
-            np.asarray(out_m), np.asarray(out_x), atol=1e-12, rtol=0
-        )
-
-    def test_grad_through_member_magnus3(self, lindblad_setup):
+    def test_grad_through_magnus3(self, lindblad_setup):
         model, _, rho0, sig = lindblad_setup
         amps = jnp.linspace(0.2, 1.0, 4)
 
         def loss(a):
             yf = fused_sweep_solve(
                 model, sig, a, t_span=(0.0, 2.0), max_dt=0.05, y0=rho0,
-                sweep_engine="member", interpret=True, magnus_order=3,
+                sweep_engine="xla", magnus_order=3,
             )
             return jnp.mean(jnp.abs(yf[:, 1, 1]) ** 2)
 
@@ -110,9 +97,9 @@ class TestMagnus3Accuracy:
 
 
 class TestMagnus3Validation:
-    def test_lane_engine_rejected(self, lindblad_setup):
+    def test_unknown_engine_rejected(self, lindblad_setup):
         model, _, rho0, sig = lindblad_setup
-        with pytest.raises(DynamicsError, match="lanes"):
+        with pytest.raises(DynamicsError, match="sweep_engine"):
             fused_sweep_solve(
                 model, sig, jnp.ones(2), t_span=(0.0, 1.0), max_dt=0.05,
                 y0=rho0, sweep_engine="pallas", magnus_order=3,
@@ -124,19 +111,6 @@ class TestMagnus3Validation:
             fused_sweep_solve(
                 model, sig, jnp.ones(2), t_span=(0.0, 1.0), max_dt=0.05,
                 y0=rho0, magnus_order=4,
-            )
-
-    def test_member_kernel_coeff_shape_guard(self):
-        from qiskit_dynamics_tpu.ops.member_sweep import sweep_expm_magnus2_member
-
-        stat = np.eye(4, dtype=complex)
-        ops = np.zeros((1, 4, 4), dtype=complex)
-        om = np.zeros((4, 4))
-        coef = np.zeros((5, 2, 1, 8))  # 2-point samples
-        y0 = np.ones((4, 8), dtype=complex)
-        with pytest.raises(ValueError, match="Gauss-point"):
-            sweep_expm_magnus2_member(
-                stat, ops, om, coef, y0, dt=0.1, interpret=True, magnus=3
             )
 
 

@@ -237,7 +237,6 @@ class TestMCSweep:
             model, (0.0, 2.0), E1,
             signals_fn=lambda g: (None, [Signal(g)]),
             params=g_sweep, n_traj=2048, key=17, n_steps=400, n_save=4,
-            tile_b=8, interpret=True,
         )
         assert res.states.shape == (5, 3, 2048, 2)
         p_exc = np.asarray(mc_expectation(res.states, N_OP))  # (5, 3)
@@ -259,7 +258,6 @@ class TestMCSweep:
             model, (0.0, 3.0), E1,
             signals_fn=lambda a: [Signal(a)],
             params=amps, n_traj=2048, key=21, n_steps=300, n_save=3,
-            tile_b=8, interpret=True,
         )
         solver = Solver(
             static_hamiltonian=0.0 * Z,
@@ -292,7 +290,6 @@ class TestMCSweep:
             model, (0.0, 1.0), E1,
             signals_fn=lambda a: [Signal(a, carrier_freq=nu)],
             params=amps, n_traj=3, key=1, n_steps=200, n_save=2,
-            tile_b=8, interpret=True,
         )
         solver = Solver(
             static_hamiltonian=np.pi * nu * Z,
@@ -316,7 +313,6 @@ class TestMCSweep:
                 model, (0.0, 1.0), E1,
                 signals_fn=lambda g: None,  # missing dissipator signals
                 params=np.array([0.1]), n_traj=4, n_steps=8, n_save=2,
-                tile_b=4, interpret=True,
             )
 
     def test_mesh_members_match_unsharded(self):
@@ -328,7 +324,7 @@ class TestMCSweep:
         kwargs = dict(
             signals_fn=lambda g: (None, [Signal(g)]),
             params=np.linspace(0.2, 0.9, 8), n_traj=16, key=3,
-            n_steps=40, n_save=2, tile_b=8, interpret=True,
+            n_steps=40, n_save=2,
         )
         plain = solve_mc_trajectories_sweep(model, (0.0, 1.0), E1, **kwargs)
         sharded = solve_mc_trajectories_sweep(
@@ -460,7 +456,7 @@ def test_sweep_jump_placement_matches_single_member():
         model_sweep, (0.0, T), y0,
         signals_fn=lambda g: (None, [Signal(g)]),
         params=jnp.array([gamma]), n_traj=n, key=2, n_steps=48, n_save=2,
-        thresholds=thr[None, :], tile_b=64, interpret=True,
+        thresholds=thr[None, :],
     )
     np.testing.assert_allclose(
         np.asarray(res_sweep.density[-1, 0]), np.asarray(res_single.density[-1]),

@@ -107,8 +107,8 @@ def test_pshard_batch_matches_direct():
 
 def test_sharded_fused_schedule_batch():
     """Schedule-batch envelope tables sharded across the data mesh: each
-    device runs the fused adaptive table kernel on its shard; results match
-    the serial fused path at the kernel accuracy floor."""
+    device runs the fused adaptive table engine on its shard; results match
+    the serial fused path at the engines' accuracy floor."""
     from qiskit_dynamics_tpu import Solver
     from qiskit_dynamics_tpu.pulse import Schedule, Play, DriveChannel, Gaussian
     from qiskit_dynamics_tpu.parallel import pshard_batch
@@ -152,19 +152,20 @@ def test_sharded_fused_schedule_batch():
 
         return fused_adaptive_sweep_solve(
             solver.model, signals_fn, p, t_span=(0.0, tf), y0=y0,
-            envelope_resolution=duration, interpret=True, tile_b=8,
+            envelope_resolution=duration, tile_b=8,
         )
 
     out = pshard_batch(shard_fn, mesh=data_mesh())(jnp.asarray(samples))
-    # lockstep step control is shared per lane-TILE: different tilings
-    # (tile_b=8 per shard vs 128 serial) take slightly different f32 step
-    # sequences, so agreement is at the kernel's accuracy floor, not exact
+    # lockstep step control is shared per group: different groupings
+    # (tile_b=8 per shard vs the default serial group) take slightly
+    # different f32 step sequences, so agreement is at the engines'
+    # accuracy floor, not exact
     np.testing.assert_allclose(np.asarray(out), serial_y, atol=1e-4)
 
 
 def test_solver_fused_schedule_mesh_option():
     """Solver.solve(method='fused_dopri5', mesh=...) shards the schedule
-    batch across the device mesh (backend-level multi-chip serving)."""
+    batch across the device mesh (backend-level multi-device serving)."""
     from qiskit_dynamics_tpu import Solver
     from qiskit_dynamics_tpu.pulse import Schedule, Play, DriveChannel, Gaussian
 
@@ -192,10 +193,10 @@ def test_solver_fused_schedule_mesh_option():
     )
     sharded = solver.solve(
         t_span=[0.0, 4.0], y0=y0, signals=scheds, method="fused_dopri5",
-        interpret=True, convert_results=False, mesh=data_mesh(), tile_b=8,
+        convert_results=False, mesh=data_mesh(), tile_b=8,
     )
     for a, b in zip(serial, sharded):
-        # different lane tilings -> agreement at the kernel accuracy floor
+        # different groupings -> agreement at the engines' accuracy floor
         np.testing.assert_allclose(
             np.asarray(a.y[-1]), np.asarray(b.y[-1]), atol=1e-4
         )
@@ -221,8 +222,7 @@ def test_sharded_fused_sweep_gradient_matches_serial():
     def batch_fn(amps):
         return fused_sweep_solve(
             solver.model, signals_fn, amps, t_span=(0.0, 2.0), max_dt=0.5,
-            y0=y0, tile_b=2, interpret=True,
-            rwa_signal_map=solver._rwa_signal_map,
+            y0=y0, rwa_signal_map=solver._rwa_signal_map,
         )
 
     sharded = pshard_batch(batch_fn)
@@ -241,7 +241,7 @@ def test_sharded_fused_sweep_gradient_matches_serial():
 
 def test_fused_sweep_solve_mesh_kwarg():
     """fused_sweep_solve(mesh=...) shards the batch internally and matches
-    the serial call exactly (identical per-shard tiling at tile_b=2)."""
+    the serial call exactly (the fixed-step engine is member-independent)."""
     from qiskit_dynamics_tpu.benchmarks import cr_solver
     from qiskit_dynamics_tpu.solvers import fused_sweep_solve
     from qiskit_dynamics_tpu import Signal
@@ -255,7 +255,7 @@ def test_fused_sweep_solve_mesh_kwarg():
         return [Signal(lambda t: amp * 0.02, carrier_freq=w1)]
 
     kw = dict(
-        t_span=(0.0, 2.0), max_dt=0.5, y0=y0, tile_b=2, interpret=True,
+        t_span=(0.0, 2.0), max_dt=0.5, y0=y0,
         rwa_signal_map=solver._rwa_signal_map,
     )
     amps = jnp.linspace(0.1, 1.0, 12)  # 12: exercises the pad-to-16 trim
@@ -265,7 +265,7 @@ def test_fused_sweep_solve_mesh_kwarg():
     )
     np.testing.assert_allclose(np.asarray(sharded), np.asarray(serial), atol=1e-13)
 
-    # gradients flow through the sharded path (custom VJP under shard_map)
+    # gradients flow through the sharded path (AD under shard_map)
     loss_sh = lambda a: jnp.mean(
         jnp.abs(
             fused_sweep_solve(solver.model, signals_fn, a, mesh=data_mesh(), **kw)[:, 1]
@@ -292,8 +292,9 @@ def test_fused_sweep_solve_mesh_kwarg():
 
 def test_fused_adaptive_sweep_solve_mesh_kwarg():
     """fused_adaptive_sweep_solve(mesh=...) shards the batch internally;
-    per-shard lockstep tiling matches the serial tiling at tile_b=2, so
-    results agree to f32 roundoff."""
+    per-shard lockstep grouping matches the serial grouping at tile_b=2 (the
+    XLA engine, the CPU path, takes any group size), so results agree to f32
+    roundoff."""
     from qiskit_dynamics_tpu.benchmarks import cr_solver
     from qiskit_dynamics_tpu.solvers import fused_adaptive_sweep_solve
     from qiskit_dynamics_tpu import Signal
@@ -307,7 +308,7 @@ def test_fused_adaptive_sweep_solve_mesh_kwarg():
 
     kw = dict(
         t_span=(0.0, 2.0), y0=y0, atol=1e-8, rtol=1e-8, tile_b=2,
-        interpret=True, rwa_signal_map=solver._rwa_signal_map,
+        rwa_signal_map=solver._rwa_signal_map,
     )
     amps = jnp.linspace(0.1, 1.0, 16)
     serial = fused_adaptive_sweep_solve(solver.model, signals_fn, amps, **kw)
@@ -340,7 +341,7 @@ def test_adaptive_mesh_gradient_matches_single_device():
             solver.model,
             lambda amp: [Signal(lambda t: amp * 0.02, carrier_freq=w1)],
             a, t_span=(0.0, 1.0), y0=y0, atol=1e-6, rtol=1e-6, tile_b=2,
-            interpret=True, rwa_signal_map=solver._rwa_signal_map,
+            rwa_signal_map=solver._rwa_signal_map,
             mesh=mesh if use_mesh else None,
         )
         return jnp.mean(jnp.abs(yf[:, 1]) ** 2)

@@ -155,15 +155,14 @@ class TestExpansionModelValidation:
 
 
 def test_solve_sweep_matches_per_member(dyson_solver):
-    """Batched chain-kernel sweep == per-member solves."""
+    """Batched chain-scan sweep == per-member solves."""
     y0 = np.array([1.0, 0.0], dtype=complex)
     amps = jnp.array([0.2, 0.4])
     n_steps = 10
     signals_fn = lambda a: [
         Signal(lambda t: a * jnp.exp(-((t - 0.125) ** 2) / 0.02), carrier_freq=NU)
     ]
-    out = dyson_solver.solve_sweep(0.0, n_steps, y0, signals_fn, amps,
-                                   tile_b=8, interpret=True)
+    out = dyson_solver.solve_sweep(0.0, n_steps, y0, signals_fn, amps)
     for i, a in enumerate([0.2, 0.4]):
         sig = Signal(lambda t, a=a: a * np.exp(-((t - 0.125) ** 2) / 0.02),
                      carrier_freq=NU)
@@ -174,15 +173,14 @@ def test_solve_sweep_matches_per_member(dyson_solver):
 
 
 def test_solve_sweep_magnus_matches_per_member(magnus_solver):
-    """Magnus batched sweep (bol expm + chain kernel) == per-member solves."""
+    """Magnus batched sweep (batched expm + chain scan) == per-member solves."""
     y0 = np.array([1.0, 0.0], dtype=complex)
     amps = jnp.array([0.2, 0.4])
     n_steps = 10
     signals_fn = lambda a: [
         Signal(lambda t: a * jnp.exp(-((t - 0.125) ** 2) / 0.02), carrier_freq=NU)
     ]
-    out = magnus_solver.solve_sweep(0.0, n_steps, y0, signals_fn, amps,
-                                    tile_b=4, interpret=True)
+    out = magnus_solver.solve_sweep(0.0, n_steps, y0, signals_fn, amps)
     for i, a in enumerate([0.2, 0.4]):
         sig = Signal(lambda t, a=a: a * np.exp(-((t - 0.125) ** 2) / 0.02),
                      carrier_freq=NU)
@@ -193,9 +191,8 @@ def test_solve_sweep_magnus_matches_per_member(magnus_solver):
 
 
 def test_solve_sweep_magnus_grad(magnus_solver):
-    """jax.grad through MagnusSolver.solve_sweep — the per-step Pallas expm
-    now carries a chunked XLA-twin adjoint (expm_taylor_bol_ad); checked
-    against finite differences."""
+    """jax.grad through MagnusSolver.solve_sweep (plain autodiff through the
+    batched Taylor expm and the chain scan) against finite differences."""
     y0 = np.array([1.0, 0.0], dtype=complex)
     n_steps = 10
     signals_fn = lambda a: [
@@ -205,7 +202,6 @@ def test_solve_sweep_magnus_grad(magnus_solver):
     def loss(amp):
         out = magnus_solver.solve_sweep(
             0.0, n_steps, y0, signals_fn, jnp.array([amp, 0.5 * amp]),
-            tile_b=4, interpret=True,
         )
         return jnp.sum(jnp.abs(out[:, 1]) ** 2)
 
@@ -226,10 +222,9 @@ def test_solve_sweep_mesh_matches_serial(dyson_solver):
     signals_fn = lambda a: [
         Signal(lambda t: a * jnp.exp(-((t - 0.125) ** 2) / 0.02), carrier_freq=NU)
     ]
-    kw = dict(tile_b=8, interpret=True)
-    serial = dyson_solver.solve_sweep(0.0, n_steps, y0, signals_fn, amps, **kw)
+    serial = dyson_solver.solve_sweep(0.0, n_steps, y0, signals_fn, amps)
     sharded = dyson_solver.solve_sweep(
-        0.0, n_steps, y0, signals_fn, amps, mesh=data_mesh(), **kw
+        0.0, n_steps, y0, signals_fn, amps, mesh=data_mesh()
     )
     np.testing.assert_allclose(
         np.asarray(sharded), np.asarray(serial), atol=1e-13

@@ -243,7 +243,7 @@ def test_schedule_batch_vmapped_matches_serial():
 
 class TestFusedScheduleSolve:
     """`method='fused_dopri5'`: schedule batches through the fused adaptive
-    kernel (TPU-native path; no reference counterpart)."""
+    engine (no reference counterpart)."""
 
     @staticmethod
     def _pulse_solver(**kwargs):
@@ -284,8 +284,8 @@ class TestFusedScheduleSolve:
         )
         assert len(fused) == 3
         for a, b in zip(ref, fused):
-            # serving default tolerance is 5e-8 (r4; the kernel's own default
-            # is 1e-6, which measured 2.5e-4 on the dim-27 serving config)
+            # serving default tolerance is 5e-8 (the engine's own default of
+            # 1e-6 is far less accurate on the dim-27 serving config)
             np.testing.assert_allclose(
                 np.asarray(a.y[-1]), np.asarray(b.y[-1]), atol=1e-5
             )
@@ -293,7 +293,7 @@ class TestFusedScheduleSolve:
     def test_serving_default_tolerance_pinned(self):
         """The fused serving path defaults to atol=rtol=5e-8: solving with
         defaults must match an EXPLICIT 5e-8 solve exactly and be much more
-        accurate than the kernel's bare 1e-6 default (VERDICT r3 item 7)."""
+        accurate than the engine's bare 1e-6 default."""
         solver = self._pulse_solver()
         y0 = np.array([1.0, 0.0], dtype=complex)
         scheds = self._schedules([0.7])
@@ -317,7 +317,7 @@ class TestFusedScheduleSolve:
         assert err_default < err_loose / 5, (err_default, err_loose)
 
     def test_grouped_t_spans(self):
-        """Mixed t_spans are grouped; each group one kernel call."""
+        """Mixed t_spans are grouped; each group one engine call."""
         solver = self._pulse_solver()
         y0 = np.array([1.0, 0.0], dtype=complex)
         scheds = self._schedules([0.4, 0.8, 0.4, 0.8], duration=40)
@@ -658,12 +658,11 @@ class TestSolveSweep:
         solver, _, y0, signals_fn, amps = self._setup()
         via_solver = solver.solve_sweep(
             signals_fn, amps, t_span=(0.0, 2.0), y0=y0,
-            method="fused_magnus2", max_dt=0.5, tile_b=4, interpret=True,
+            method="fused_magnus2", max_dt=0.5,
         )
         direct = fused_sweep_solve(
             solver.model, signals_fn, amps, t_span=(0.0, 2.0), max_dt=0.5,
-            y0=y0, tile_b=4, interpret=True,
-            rwa_signal_map=solver._rwa_signal_map,
+            y0=y0, rwa_signal_map=solver._rwa_signal_map,
         )
         np.testing.assert_allclose(np.asarray(via_solver), np.asarray(direct), atol=1e-14)
 
@@ -674,7 +673,7 @@ class TestSolveSweep:
         solver, _, y0, signals_fn, amps = self._setup()
         out = solver.solve_sweep(
             signals_fn, amps, t_span=(0.0, 2.0), y0=y0,
-            method="fused_dopri5", tile_b=4, interpret=True,
+            method="fused_dopri5", tile_b=16, interpret=True,
         )
         assert out.shape == (4, 4)
         with pytest.raises(DynamicsError, match="solve_sweep method"):
@@ -691,12 +690,12 @@ class TestSolveSweep:
         rwa_sigs_fn = lambda amp: list(solver._rwa_signal_map(signals_fn(amp)))
         via_override = solver.solve_sweep(
             rwa_sigs_fn, amps, t_span=(0.0, 2.0), y0=y0,
-            method="fused_magnus2", max_dt=0.5, tile_b=4, interpret=True,
+            method="fused_magnus2", max_dt=0.5,
             rwa_signal_map=None,
         )
         auto = solver.solve_sweep(
             signals_fn, amps, t_span=(0.0, 2.0), y0=y0,
-            method="fused_magnus2", max_dt=0.5, tile_b=4, interpret=True,
+            method="fused_magnus2", max_dt=0.5,
         )
         np.testing.assert_allclose(
             np.asarray(via_override), np.asarray(auto), atol=1e-13

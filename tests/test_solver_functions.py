@@ -189,8 +189,8 @@ def test_tpu_adaptive_accuracy_vs_scipy():
     )
     y0 = np.array([1.0, 0.0], dtype=complex)
     res_sp = solve_ode(ham, [0, 2.0], y0, method="DOP853", atol=1e-12, rtol=1e-12)
-    res_tpu = solve_ode(ham, [0, 2.0], y0, method="tpu_dop853", atol=1e-12, rtol=1e-12)
-    np.testing.assert_allclose(res_tpu.y[-1], res_sp.y[-1], atol=1e-8, rtol=1e-8)
+    res_native = solve_ode(ham, [0, 2.0], y0, method="tpu_dop853", atol=1e-12, rtol=1e-12)
+    np.testing.assert_allclose(res_native.y[-1], res_sp.y[-1], atol=1e-8, rtol=1e-8)
 
 
 def test_tpu_adaptive_max_steps_nan_poisons():
